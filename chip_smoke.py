@@ -1,33 +1,46 @@
 #!/usr/bin/env python3
-"""Drive the vacmap_tpu_torch mode-H path once on one CUDA card.
+"""Drive the vacmap_tpu_torch mode-H paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (each prints one result line; any failure exits non-zero before
 the final line):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds csrc/*.cu into build/vacmap_tpu_torch/;
+  2. build: nvcc builds csrc/*.cu into build/vacmap_tpu_torch/ (one
+     compiler process per source, all started together);
   3. data: the benchmark's 100 Mb genome (tandem arrays, a segmental
      duplication; seed 20260816), its first 256 reads of 20 kb at 5%
      ONT-like error (1/3 plain, 1/3 mid-read inversion, 1/3 3 kb
      deletion) and 16 more with a 120-250 bp deletion;
   4. kernels: every kernel against its plain PyTorch version on the card
      at main-path shapes (chain S within 1e-3 and P agreement >= 0.999;
-     fill planes byte-identical), plus >= 2000 realistic fill jobs through
-     TorchFillAligner against the host aligner's CIGARs;
-  5. end to end: the port's CLI maps the reads (--device cuda) in this
-     process; every kernel of the path must have launched, every read
-     must align, and >= 99% of reads must have the same records (SAM
-     columns 1-6) as the vacmap_tpu host path.  The throughput of both
-     comes from one more run of each CLI as a process of its own, timed
-     from its start to its exit.
-Kernel times are device time per call (CUDA events around calls queued
-behind a GPU sleep, so no host work is in the window); "wrapper" is the
-stream time per call of back-to-back wrapper calls, host work included,
-and "plain" the stream time of one call of the plain PyTorch version.
-The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}.  Exits non-zero, with no result, when
-no CUDA card is visible or the package is not beside this script.
+     fill planes and scan op streams byte-identical), then 2050
+     realistic fill jobs against the host aligner's CIGARs, through
+     TorchFillAligner and through the in-process fill service
+     (AsyncFillAligner) on its default route and on the scan route
+     (VACMAP_TPU_FILL_SCAN=1);
+  5. end to end: the port's executor (--backend jax) maps the reads in
+     this process; then three CLI processes of their own, each timed
+     from its start to its exit: the vacmap_tpu host path (4 fork
+     workers, host fills), the port's executor, and the port's default
+     deployment (-t 4 fork workers sharing one CUDA fill service
+     process, --device-fills on, service stats from
+     VACMAP_TPU_FILL_STATS).  Every read must align, >= 99% of reads
+     must have the host path's records (SAM columns 1-6) in both port
+     deployments, the service must have served jobs, and every kernel of
+     a path must have launched on it.  Each deployment's service stats
+     line gives the share of fill jobs the kernels answered.
+Launch counts are set to 0 just before each path and read just after.
+The fill kernels' counts of both deployments come from their service's
+stats line, which counts from the moment the service is ready, so the
+prewarm launches are not in them.  Kernel times
+are device time per call (CUDA events around calls queued behind a GPU
+sleep, so no host work is in the window); "wrapper" is the stream time
+per call of back-to-back wrapper calls, host work included, and "plain"
+the stream time of one call of the plain PyTorch version.  The line
+before the last is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
+CUDA card is visible or the package is not beside this script.
 """
 
 from __future__ import annotations
@@ -271,6 +284,15 @@ def cli_process(args, env):
     return time.perf_counter() - t0, p
 
 
+def read_stats(path):
+    """The fill service's stats line as {key: value}, its launches as
+    {kernel: count}."""
+    stats = dict(kv.split("=", 1) for kv in open(path).read().split())
+    launches = {k: int(v) for k, v in
+                (kv.split(":") for kv in stats["launches"].split(","))}
+    return stats, launches
+
+
 def sam_records(path):
     """{read name: sorted SAM columns 1-6 of its records}."""
     recs = {}
@@ -297,8 +319,20 @@ def main() -> int:
         from vacmap_tpu_torch import _build, cli
         from vacmap_tpu_torch.ops import affine_fill as af
         from vacmap_tpu_torch.ops import chain
+        from vacmap_tpu_torch.parallel import fill_service
     except ImportError as err:
         fail(f"vacmap_tpu_torch is not importable beside this script: {err}")
+    kernels = {"chain_dp": chain.chain_scores_batch,
+               "fill_full": af.fill_rowruns,
+               "fill_banded": af.fill_rowruns_banded,
+               "fill_scan": af.fill_traceback}
+
+    def reset_launches():
+        for w in kernels.values():
+            w.launches = 0
+
+    def read_launches():
+        return {k: w.launches for k, w in kernels.items()}
 
     # ---- 1. device ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -412,6 +446,23 @@ def main() -> int:
             fail(f"{name} N={N} planes differ from its plain version")
         return err, ms, wrap_ms, plain_ms
 
+    def scan_phase(N, pairs):
+        tT, tQ, lens = padded(pairs, N)
+        x = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in (tT, tQ, lens[:, 0], lens[:, 1])]
+        af.fill_traceback(*x)  # warm-up
+        wrap_ms, got = wall_ms(torch, lambda: af.fill_traceback(*x), 20)
+        ms = device_ms(torch, lambda: af.fill_traceback(*x), 5)
+        plain_ms, want = wall_ms(torch, lambda: af.fill_traceback_ref(*x), 1)
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        err = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+        say(f"kernel fill_scan B={len(pairs)} N={N}: packed op streams "
+            f"{'byte-identical' if err == 0 else 'DIFFER'} kernel {ms:.3f} ms "
+            f"(wrapper {wrap_ms:.3f} ms) plain {plain_ms:.1f} ms [{card}]")
+        if err:
+            fail(f"fill_scan N={N} op streams differ from its plain version")
+        return err, ms, wrap_ms, plain_ms
+
     try:
         res = []
         for N in (256, 512):
@@ -427,104 +478,184 @@ def main() -> int:
             res.append(fill_phase("fill_banded", af.fill_rowruns_banded,
                                   af.fill_rowruns_banded_ref, T, pairs, True))
         summary["fill_banded"] = summarize(res)
+        res = []
+        for N in (256, 512):
+            pairs = fill_pairs(rng, gcodes, 256, N // 4, N, big_indel=0.3,
+                               random_frac=0.05)
+            res.append(scan_phase(N, pairs))
+        summary["fill_scan"] = summarize(res)
     except SystemExit:
         raise
     except Exception as err:  # noqa: BLE001
         fail(f"fill phase raised: {err!r}")
 
-    # realistic jobs through the aligner vs the host aligner
+    # realistic jobs through the aligner and the service vs the host aligner
     pairs = (fill_pairs(rng, gcodes, 1800, 10, 500, big_indel=0.05, n_frac=0.03)
              + fill_pairs(rng, gcodes, 150, 300, 700)
              + fill_pairs(rng, gcodes, 100, 1, 12))
-    t0 = time.perf_counter()
-    try:
-        got = af.TorchFillAligner(device=dev).align_batch(pairs, eqx=True)
-        torch.cuda.synchronize()
-    except Exception as err:  # noqa: BLE001
-        fail(f"TorchFillAligner raised: {err!r}")
-    dt = time.perf_counter() - t0
     host = af.native.align2p_batch_native(pairs, eqx=True)
     if host is None:
         fail("native host aligner unavailable")
-    bad = [i for i, (g, h) in enumerate(zip(got, host))
-           if g.cigar != af.native.ops_to_cigar(h)]
-    say(f"aligner: {len(pairs) - len(bad)}/{len(pairs)} CIGARs equal to the "
-        f"host aligner (eqx) in {dt:.2f} s [{card}]")
-    if bad:
-        fail(f"TorchFillAligner CIGARs differ from the host aligner on jobs {bad[:20]}")
+    host = [af.native.ops_to_cigar(h) for h in host]
+
+    def held_to_host(what, align):
+        t0 = time.perf_counter()
+        try:
+            got = align()
+            torch.cuda.synchronize()
+        except Exception as err:  # noqa: BLE001
+            fail(f"{what} raised: {err!r}")
+        dt = time.perf_counter() - t0
+        bad = [i for i, (g, h) in enumerate(zip(got, host)) if g.cigar != h]
+        say(f"{what}: {len(pairs) - len(bad)}/{len(pairs)} CIGARs equal to "
+            f"the host aligner (eqx) in {dt:.3f} s [{card}]")
+        if bad:
+            fail(f"{what} CIGARs differ from the host aligner on jobs {bad[:20]}")
+
+    held_to_host("aligner", lambda: af.TorchFillAligner(device=dev)
+                 .align_batch(pairs, eqx=True))
+    path_launches = {}
+    for route, scan in (("service_default", False), ("service_scan", True)):
+        if scan:
+            os.environ["VACMAP_TPU_FILL_SCAN"] = "1"
+        svc = fill_service.async_fill_aligner(dev)
+        try:
+            if not svc.ready.wait(300) or svc.core.error is not None:
+                fail(f"{route}: the fill service did not come up: "
+                     f"{svc.core.error}")
+            reset_launches()
+            held_to_host(f"{route} (AsyncFillAligner)",
+                         lambda: svc.align_batch(pairs, eqx=True))
+            path_launches[route] = read_launches()
+        finally:
+            svc.stop()
+            os.environ.pop("VACMAP_TPU_FILL_SCAN", None)
+        say(f"{route} launches: {path_launches[route]}")
+    need = {"service_default": ("fill_banded", "fill_full"),
+            "service_scan": ("fill_banded", "fill_scan")}
+    for route, names in need.items():
+        if min(path_launches[route][k] for k in names) <= 0:
+            fail(f"{route}: a kernel of the route never launched: "
+                 f"{path_launches[route]}")
 
     # ---- 5. end to end ----------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="vacmap_smoke_") as wd:
         ref = os.path.join(wd, "ref.fa")
         rds = os.path.join(wd, "reads.fa")
-        out = os.path.join(wd, "port.sam")
-        host_out = os.path.join(wd, "host.sam")
-        timed_out = os.path.join(wd, "port_timed.sam")
+        out = {k: os.path.join(wd, f"{k}.sam")
+               for k in ("executor", "host", "executor_timed", "fork_pool")}
+        stats_path = {k: os.path.join(wd, f"{k}_fill_stats.txt")
+                      for k in ("executor", "fork_pool")}
         write_fasta(ref, [("chr1", gcodes)])
         write_fasta(rds, reads)
         t0 = time.perf_counter()
         cli.load_or_build_index(ref, 15, 10, True)
         say(f"index: built and saved in {time.perf_counter() - t0:.1f} s")
+        common = ["-ref", ref, "-read", rds, "-mode", "H"]
 
-        # the main path, in this process, for the launch counts
-        for k in (chain.chain_scores_batch, af.fill_rowruns,
-                  af.fill_rowruns_banded):
-            k.launches = 0
+        # the executor path, in this process, for its launch counts
+        # (chain_dp's from its wrapper, the fills' from the stats line)
+        os.environ["VACMAP_TPU_FILL_STATS"] = stats_path["executor"]
+        reset_launches()
         try:
-            rc = cli.main(["-ref", ref, "-read", rds, "-mode", "H",
-                           "--device", "cuda", "-o", out])
+            rc = cli.main([*common, "--backend", "jax", "--device", "cuda",
+                           "-o", out["executor"]])
             torch.cuda.synchronize()
         except Exception as err:  # noqa: BLE001
-            fail(f"port CLI raised: {err!r}")
-        launches = {
-            "chain_dp": chain.chain_scores_batch.launches,
-            "fill_full": af.fill_rowruns.launches,
-            "fill_banded": af.fill_rowruns_banded.launches,
-        }
+            fail(f"port executor CLI raised: {err!r}")
+        finally:
+            os.environ.pop("VACMAP_TPU_FILL_STATS", None)
+        chain_launches = read_launches()["chain_dp"]
         if rc != 0:
-            fail(f"port CLI exited {rc}")
+            fail(f"port executor CLI exited {rc}")
 
-        # both CLIs again as processes of their own, timed over the same
-        # window (the host path writes the records the port is held to)
+        # three CLIs as processes of their own, timed over the same window
+        # (the host path writes the records the port is held to)
         env = dict(os.environ)
         env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + (
             os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-        common = ["-ref", ref, "-read", rds, "-mode", "H"]
-        host_s, hp = cli_process(
-            ["-m", "vacmap_tpu.cli", *common, "--backend", "numpy",
-             "--device-fills", "off", "-o", host_out], env)
-        if hp.returncode != 0:
-            fail(f"host path exited {hp.returncode}: {hp.stderr[-2000:]}")
-        port_s, pp = cli_process(
-            ["-m", "vacmap_tpu_torch.cli", *common, "--device", "cuda", "-o",
-             timed_out], env)
-        if pp.returncode != 0:
-            fail(f"port CLI process exited {pp.returncode}: {pp.stderr[-2000:]}")
-        port_recs, host_recs = sam_records(out), sam_records(host_out)
-        timed_same = sam_records(timed_out) == port_recs
+        runs = {
+            "host": ["-m", "vacmap_tpu.cli", *common, "--backend", "numpy",
+                     "--device-fills", "off", "-o", out["host"]],
+            "executor_timed": ["-m", "vacmap_tpu_torch.cli", *common,
+                               "--backend", "jax", "--device", "cuda", "-o",
+                               out["executor_timed"]],
+            "fork_pool": ["-m", "vacmap_tpu_torch.cli", *common, "-t", "4",
+                          "--device", "cuda", "--device-fills", "on", "-o",
+                          out["fork_pool"]],
+        }
+        secs = {}
+        for name, argv in runs.items():
+            penv = dict(env, VACMAP_TPU_FILL_STATS=stats_path[name]) \
+                if name == "fork_pool" else env
+            secs[name], p = cli_process(argv, penv)
+            if p.returncode != 0:
+                fail(f"{name} CLI process exited {p.returncode}: "
+                     f"{p.stderr[-3000:]}")
+            if name == "fork_pool":
+                bad = [ln for ln in p.stderr.splitlines()
+                       if "degraded" in ln or "device error" in ln]
+                if bad:
+                    fail(f"fork-pool service reported: {bad[:5]}")
+        stats = {}
+        for path in ("executor", "fork_pool"):
+            try:
+                stats[path], path_launches[path] = read_stats(stats_path[path])
+            except (OSError, KeyError, ValueError) as err:
+                fail(f"the {path}'s fill service wrote no stats line: {err!r}")
+        path_launches["executor"]["chain_dp"] = chain_launches
+        recs = {k: sam_records(v) for k, v in out.items()}
 
     names = [n for n, _ in reads]
-    aligned = sum(1 for n in names if any(
-        not int(r[1]) & 4 for r in port_recs.get(n, [])))
-    same = [n for n in names if port_recs.get(n) == host_recs.get(n)]
-    differ = [n for n in names if port_recs.get(n) != host_recs.get(n)]
-    agree = len(same) / len(names)
-    say(f"e2e launches: chain_dp={launches['chain_dp']} "
-        f"fill_banded={launches['fill_banded']} "
-        f"fill_full={launches['fill_full']}")
-    say(f"e2e: aligned {aligned}/{len(names)}; records equal to the host path "
-        f"for {len(same)}/{len(names)} reads ({agree:.4f}); differ: {differ}")
-    say(f"e2e (one CLI process each, start to exit): port "
-        f"{read_bases / port_s / 1e6:.4f} Mbp/s ({port_s:.3f} s, --device "
-        f"cuda, -t 4; records equal to the in-process run: {timed_same}) "
-        f"host path {read_bases / host_s / 1e6:.4f} Mbp/s ({host_s:.3f} s, "
-        f"4 fork workers) [{card}]")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the path never launched: {launches}")
-    if aligned != len(names):
-        fail(f"only {aligned}/{len(names)} reads aligned")
-    if agree < E2E_AGREE_MIN:
-        fail(f"record agreement {agree:.4f} < {E2E_AGREE_MIN}")
+    host_recs = recs["host"]
+    for path in ("executor", "fork_pool"):
+        say(f"{path} fill service stats: "
+            + " ".join(f"{k}={v}" for k, v in stats[path].items())
+            + f" [{card}]")
+        st = stats[path]
+        say(f"{path} fill jobs: {st['submitted']} submitted; the kernels "
+            f"answered {int(st['jobs']) - int(st['escal'])} (device share "
+            f"{st['device_share']}); host fills: {st['capped']} bounced by "
+            f"the in-flight cap, {st['governed']} by the latency governor, "
+            f"{st['not_ready']} before the service was ready, "
+            f"{st['host_slot']} in the service's host slot, {st['escal']} "
+            f"band escalations")
+        say(f"{path} launches: {path_launches[path]}")
+    checks = []
+    for path in ("executor", "fork_pool"):
+        port_recs = recs[path]
+        aligned = sum(1 for n in names if any(
+            not int(r[1]) & 4 for r in port_recs.get(n, [])))
+        same = [n for n in names if port_recs.get(n) == host_recs.get(n)]
+        differ = [n for n in names if port_recs.get(n) != host_recs.get(n)]
+        agree = len(same) / len(names)
+        say(f"e2e {path}: aligned {aligned}/{len(names)}; records equal to "
+            f"the host path for {len(same)}/{len(names)} reads "
+            f"({agree:.4f}); differ: {differ}")
+        checks.append((path, aligned, agree))
+    timed_same = recs["executor_timed"] == recs["executor"]
+    say(f"e2e (one CLI process each, start to exit): host path "
+        f"{read_bases / secs['host'] / 1e6:.4f} Mbp/s ({secs['host']:.3f} s, 4 "
+        f"fork workers, host fills); port executor "
+        f"{read_bases / secs['executor_timed'] / 1e6:.4f} Mbp/s "
+        f"({secs['executor_timed']:.3f} s, --backend jax; records equal to the "
+        f"in-process run: {timed_same}); port fork pool "
+        f"{read_bases / secs['fork_pool'] / 1e6:.4f} Mbp/s "
+        f"({secs['fork_pool']:.3f} s, -t 4, one CUDA fill service) [{card}]")
+    need = {"executor": ("chain_dp", "fill_banded", "fill_full"),
+            "fork_pool": ("fill_banded",)}
+    for path, ks in need.items():
+        if min(path_launches[path][k] for k in ks) <= 0:
+            fail(f"{path}: a kernel of the path never launched: "
+                 f"{path_launches[path]}")
+    for path in ("executor", "fork_pool"):
+        if int(stats[path]["jobs"]) <= 0:
+            fail(f"the {path}'s fill service served no jobs")
+    for path, aligned, agree in checks:
+        if aligned != len(names):
+            fail(f"{path}: only {aligned}/{len(names)} reads aligned")
+        if agree < E2E_AGREE_MIN:
+            fail(f"{path}: record agreement {agree:.4f} < {E2E_AGREE_MIN}")
     if "jax" in sys.modules:
         fail("jax was imported")
 
@@ -535,11 +666,18 @@ def main() -> int:
                       "vacmap_tpu/ops/affine_pallas.py:172"),
         "fill_banded": ("vacmap_tpu_torch/csrc/fill_banded.cu",
                         "vacmap_tpu/ops/affine_pallas.py:423"),
+        "fill_scan": ("vacmap_tpu_torch/csrc/fill_scan.cu",
+                      "vacmap_tpu/ops/affine_pallas.py:291"),
     }
-    kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=launches[k], **summary[k])
-               for k, (src, rep) in replaces.items()]
-    say(json.dumps({"kernels": kernels}))
+    lines = []
+    for k, (src, rep) in replaces.items():
+        by_path = {p: n[k] for p, n in path_launches.items() if n.get(k)}
+        if not by_path:
+            fail(f"{k} never launched on any path: {path_launches}")
+        lines.append(dict(name=k, route="cuda", source=src, replaces=rep,
+                          launches=sum(by_path.values()),
+                          launches_by_path=by_path, **summary[k]))
+    say(json.dumps({"kernels": lines}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

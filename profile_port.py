@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time goes on the vacmap_tpu_torch mode-H path, on one CUDA card.
+"""Where the time goes on the vacmap_tpu_torch mode-H paths, on one CUDA card.
 
     python3 profile_port.py [--runs 3]
 
 On chip_smoke.py's corpus (the 100 Mb benchmark genome and its 272 reads
 of 20 kb), after building the index once:
-  1. throughput: the port's CLI (--device cuda) and the vacmap_tpu host
-     path (--backend numpy --device-fills off), each run as a process of
-     its own and timed from its start to its exit, alternating
-     port, host, host, port, ... for --runs pairs; and the start-up part
-     of that window: a process that only imports each side (and, for the
-     port, sets up the CUDA context and loads the kernel library);
-  2. breakdown: one more port run in this process under torch.profiler
-     with the stage trace on (--debug): device time by kernel and copy,
-     the device's busy share of that run's wall time, and the host
-     stage spans summed over the finishing threads.
+  1. throughput: three CLIs, each run as a process of its own and timed
+     from its start to its exit, in turns for --runs rounds (the order
+     reversed every other round): the vacmap_tpu host path (--backend
+     numpy --device-fills off), the port's executor (--backend jax) and
+     the port's default deployment (-t 4 fork workers, one CUDA fill
+     service process, --device-fills on, its service stats line); and
+     the start-up part of that window: processes that only import torch,
+     only set the port up (torch import, CUDA context, kernel library),
+     or only import the host path;
+  2. breakdown: one more executor run in this process under
+     torch.profiler with the stage trace on (--debug): device time by
+     kernel and copy, the device's busy share of that run's wall time,
+     and the host stage spans summed over the finishing threads.
 Every result line carries the card's name and power limit.
 """
 
@@ -77,11 +80,15 @@ def main() -> int:
         cli.load_or_build_index(ref, 15, 10, True)
         common = ["-ref", ref, "-read", rds, "-mode", "H", "--force"]
         sides = {
-            "port": ["-m", "vacmap_tpu_torch.cli", *common, "--device", "cuda"],
             "host": ["-m", "vacmap_tpu.cli", *common, "--backend", "numpy",
                      "--device-fills", "off"],
+            "executor": ["-m", "vacmap_tpu_torch.cli", *common, "--backend",
+                         "jax", "--device", "cuda"],
+            "fork_pool": ["-m", "vacmap_tpu_torch.cli", *common, "-t", "4",
+                          "--device", "cuda", "--device-fills", "on"],
         }
         startup = {
+            "torch import": "import torch",
             "port": "import torch; torch.zeros(1, device='cuda'); "
                     "from vacmap_tpu_torch import _build, cli; _build.library()",
             "host": "import vacmap_tpu.cli",
@@ -92,26 +99,34 @@ def main() -> int:
                 cs.fail(f"{side} start-up exited {p.returncode}: {p.stderr[-2000:]}")
             cs.say(f"start-up {side}: {dt:.3f} s [{card}]")
         order = [s for r in range(args.runs)
-                 for s in (("port", "host") if r % 2 == 0 else ("host", "port"))]
+                 for s in (list(sides) if r % 2 == 0 else list(sides)[::-1])]
+        stats_path = os.path.join(wd, "fill_stats.txt")
         for k, side in enumerate(order):
+            penv = dict(env, VACMAP_TPU_FILL_STATS=stats_path)
             dt, p = cs.cli_process(
-                [*sides[side], "-o", os.path.join(wd, f"{side}{k}.sam")], env)
+                [*sides[side], "-o", os.path.join(wd, f"{side}{k}.sam")], penv)
             if p.returncode != 0:
                 cs.fail(f"{side} CLI exited {p.returncode}: {p.stderr[-2000:]}")
+            extra = ""
+            if side != "host":  # both port deployments write the line
+                extra = " service: " + open(stats_path).read().strip()
+                extra += "".join(f"\n    {ln}" for ln in p.stderr.splitlines()
+                                 if "fill service" in ln or "Done" in ln)
             cs.say(f"process {side}: {dt:.3f} s = {bases / dt / 1e6:.4f} Mbp/s "
-                   f"({len(reads)} reads, {bases} bp) [{card}]")
+                   f"({len(reads)} reads, {bases} bp) [{card}]{extra}")
 
         trace.reset()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            rc = cli.main([*common, "--device", "cuda", "--debug",
+            rc = cli.main([*common, "--backend", "jax", "--device", "cuda",
+                           "--debug",
                            "-o", os.path.join(wd, "profiled.sam")])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         if rc != 0:
             cs.fail(f"profiled port run exited {rc}")
-    cs.say(f"profiled in-process run: wall {wall:.3f} s = "
+    cs.say(f"profiled in-process executor run: wall {wall:.3f} s = "
            f"{bases / wall / 1e6:.4f} Mbp/s [{card}]")
     rows = sorted(device_events(torch, prof), key=lambda r: -r[2])
     busy = sum(us for _, _, us in rows) / 1e3

@@ -133,3 +133,48 @@ def test_aligner_on_card_matches_host(dev):
     got = TorchFillAligner(device=dev).align_batch(pairs, eqx=True)
     want = native.align2p_batch_native(pairs, eqx=True)
     assert [g.cigar for g in got] == [native.ops_to_cigar(w) for w in want]
+
+
+@pytest.mark.parametrize("N", [256, 512])
+def test_scan_fill_kernel_matches_plain(dev, N):
+    from vacmap_tpu_torch.ops.affine_fill import fill_traceback, fill_traceback_ref
+
+    rng = np.random.default_rng(35 + N)
+    tT, tQ, lens = _planes(_pairs(rng, 256, 1, N), N)
+    x = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for a in (tT, tQ, lens[:, 0], lens[:, 1])]
+    before = fill_traceback.launches
+    got = fill_traceback(*x)
+    torch.cuda.synchronize()
+    assert fill_traceback.launches == before + 1
+    assert got.shape == (N // 2, 256)
+    assert torch.equal(got.cpu(), fill_traceback_ref(*x).cpu())
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_fill_service_on_card_matches_host(dev, scan, monkeypatch):
+    """The in-process service on the card, default route (banded and
+    row-run kernels) and scan route: the host aligner's CIGARs."""
+    from vacmap_tpu import native
+    from vacmap_tpu_torch.ops.affine_fill import fill_traceback
+    from vacmap_tpu_torch.parallel.fill_service import async_fill_aligner
+
+    if scan:
+        monkeypatch.setenv("VACMAP_TPU_FILL_SCAN", "1")
+    rng = np.random.default_rng(36)
+    pairs = _pairs(rng, 600, 1, 500, err=0.05, random_frac=0.0)
+    for _ in range(24):  # |dq| > 95: the full-width (or scan) route
+        t = rng.integers(0, 4, int(rng.integers(100, 300))).astype(np.uint8)
+        p = int(rng.integers(0, len(t)))
+        ins = rng.integers(0, 4, int(rng.integers(100, 200))).astype(np.uint8)
+        pairs.append((t, np.concatenate([t[:p], ins, t[p:]])))
+    svc = async_fill_aligner(dev, max_wait_ms=2.0)
+    try:
+        assert svc.ready.wait(120) and svc.core.error is None
+        before = fill_traceback.launches
+        got = svc.align_batch(pairs, eqx=True)
+        assert (fill_traceback.launches > before) == scan
+    finally:
+        svc.stop()
+    want = native.align2p_batch_native(pairs, eqx=True)
+    assert [g.cigar for g in got] == [native.ops_to_cigar(w) for w in want]

@@ -25,8 +25,29 @@ def test_port_imports_no_jax():
         "import vacmap_tpu_torch.pipeline.executor, vacmap_tpu_torch.ops.chain\n"
         "import vacmap_tpu_torch.ops.affine_fill\n"
         "import vacmap_tpu_torch.parallel.device_service\n"
+        "import vacmap_tpu_torch.parallel.fill_service\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_port_imports_with_jax_blocked():
+    """The CLI and the fill service import with ``jax`` unimportable (the
+    card's machine has no jax): every host module they pull from
+    vacmap_tpu is jax-free at import."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import vacmap_tpu_torch.cli, vacmap_tpu_torch.parallel.fill_service\n"
+        "import vacmap_tpu_torch.pipeline.executor\n"
+        "from vacmap_tpu.cli import _worker, _worker_loop, _writer\n"
         "print('ok')\n"
     )
     env = dict(os.environ)
@@ -69,6 +90,12 @@ def test_wrappers_raise_off_cpu_instead_of_plain_version():
             torch.empty((1, 256), dtype=torch.uint8, **meta),
             torch.empty((1, 384), dtype=torch.uint8, **meta),
             torch.empty((1, 2), dtype=torch.int32, **meta))
+    with pytest.raises(DeviceKernelError):
+        affine_fill.fill_traceback(
+            torch.empty((1, 256), dtype=torch.uint8, **meta),
+            torch.empty((1, 256), dtype=torch.uint8, **meta),
+            torch.empty((1,), dtype=torch.int32, **meta),
+            torch.empty((1,), dtype=torch.int32, **meta))
 
 
 def test_cuda_backends_raise_without_a_card():

@@ -1,6 +1,12 @@
 """vacmap_tpu_torch batched executor and CLI on the CPU (plain kernel
 versions) against the vacmap_tpu executor, the host per-read mapper and
-the host CLI."""
+the host CLI: the executor (--backend jax), the single-worker and the
+fork-pool deployments with their fill service."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -13,8 +19,11 @@ from vacmap_tpu.pipeline.mapper import Mapper
 from vacmap_tpu.seq import revcomp
 from vacmap_tpu_torch.ops.chain import MAX_N
 from vacmap_tpu_torch.parallel.device_service import TorchAggregatingChainBackend
+from vacmap_tpu_torch.parallel.fill_service import AsyncFillAligner
 from vacmap_tpu_torch.pipeline.executor import TorchBatchExecutor
 from tests.conftest import random_dna
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
@@ -47,8 +56,13 @@ def test_torch_executor_matches_jax_executor_and_host(world):
     m = Mapper(idx, cfg)
     ex = TorchBatchExecutor(m, device="cpu")
     assert isinstance(m.chain_backend, TorchAggregatingChainBackend)
-    assert m.global_aligner is not None  # fills go through TorchFillAligner
-    got = ex.map_batch(reads, n_threads=3)
+    # fills go through the in-process fill service, as in the reference
+    assert isinstance(m.global_aligner, AsyncFillAligner)
+    assert m.global_aligner.ready.wait(60)
+    try:
+        got = ex.map_batch(reads, n_threads=3)
+    finally:
+        ex.close()
     for (name, _), g, j, h in zip(reads, got, jax_lines, host):
         assert g, name
         assert len(g) == len(j) == len(h), name
@@ -58,8 +72,11 @@ def test_torch_executor_matches_jax_executor_and_host(world):
 def test_torch_map_stream_matches_map_batch(world):
     genome, idx, reads = world
     ex = TorchBatchExecutor(Mapper(idx, AlignerConfig(mode="H")), device="cpu")
-    got = list(ex.map_stream(iter(reads), batch_reads=4, n_threads=2))
-    assert got == ex.map_batch(reads, n_threads=2)
+    try:
+        got = list(ex.map_stream(iter(reads), batch_reads=4, n_threads=2))
+        assert got == ex.map_batch(reads, n_threads=2)
+    finally:
+        ex.close()
 
 
 def test_torch_executor_routes_2_31_anchors_to_host(world):
@@ -99,7 +116,8 @@ def test_torch_cli_matches_host_cli(world, tmp_path):
     out_port = tmp_path / "port.sam"
     out_host = tmp_path / "host.sam"
     common = ["-ref", str(ref), "-read", str(rd), "-mode", "H", "--nowriteindex"]
-    assert port_cli.main(common + ["--device", "cpu", "-o", str(out_port)]) == 0
+    assert port_cli.main(common + ["--backend", "jax", "--device", "cpu",
+                                   "-o", str(out_port)]) == 0
     assert host_cli.main(common + ["--backend", "numpy", "-t", "1",
                                    "--device-fills", "off",
                                    "-o", str(out_host)]) == 0
@@ -110,6 +128,69 @@ def test_torch_cli_matches_host_cli(world, tmp_path):
     got, want = body(out_port), body(out_host)
     assert sum(not l.startswith("@") for l in want) >= 4
     assert got == want
+
+
+def _port_cli_process(args, tmp_path, timeout=300, **env_extra):
+    env = dict(os.environ, **env_extra)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run([sys.executable, "-m", "vacmap_tpu_torch.cli", *args],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+
+
+@pytest.mark.parametrize("threads", ["2", "1"])
+def test_torch_cli_service_deployments_match_host_cli(world, tmp_path, threads):
+    """The default deployment (-t 2: fork workers sharing one service
+    process) and -t 1 (one deferred-window loop and the service process),
+    with --device cpu --device-fills on: the service serves fills, and
+    the SAM records equal vacmap_tpu's --backend numpy --device-fills off."""
+    from vacmap_tpu import cli as host_cli
+
+    genome, idx, reads = world
+    ref = tmp_path / "ref.fa"
+    ref.write_text(f">e1\n{genome['e1']}\n")
+    rd = tmp_path / "reads.fa"
+    rd.write_text("".join(f">{n}\n{s}\n" for n, s in reads))
+    out_port = tmp_path / "port.sam"
+    out_host = tmp_path / "host.sam"
+    stats = tmp_path / "stats.txt"
+    common = ["-ref", str(ref), "-read", str(rd), "-mode", "H", "--nowriteindex"]
+    r = _port_cli_process(common + ["-t", threads, "--device", "cpu",
+                                    "--device-fills", "on", "-o", str(out_port)],
+                          tmp_path, VACMAP_TPU_FILL_STATS=str(stats))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "device error" not in r.stderr
+    fields = dict(kv.split("=", 1) for kv in stats.read_text().split())
+    assert int(fields["jobs"]) > 0 and int(fields["calls"]) > 0
+    assert host_cli.main(common + ["--backend", "numpy", "-t", "1",
+                                   "--device-fills", "off",
+                                   "-o", str(out_host)]) == 0
+
+    def records(p):
+        return sorted(l for l in p.read_text().splitlines()
+                      if not l.startswith("@"))
+
+    assert len(records(out_host)) >= len(reads)
+    assert records(out_port) == records(out_host)
+
+
+def test_torch_cli_without_a_card_exits_nonzero(world, tmp_path):
+    """--device cuda (the default) with no card fails before mapping, on
+    both the executor and the fork-pool paths."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    genome, idx, reads = world
+    ref = tmp_path / "ref.fa"
+    ref.write_text(f">e1\n{genome['e1'][:20000]}\n")
+    rd = tmp_path / "reads.fa"
+    rd.write_text(f">r\n{genome['e1'][1000:3000]}\n")
+    for extra in (["-t", "2"], ["--backend", "jax"]):
+        r = _port_cli_process(["-ref", str(ref), "-read", str(rd), "-mode", "H",
+                               "--nowriteindex", "-o", str(tmp_path / "o.sam"),
+                               "--force", *extra], tmp_path, timeout=120)
+        assert r.returncode != 0 and "DeviceKernelError" in r.stderr, extra
 
 
 @pytest.mark.parametrize("argv", [

@@ -1,7 +1,7 @@
 """vacmap_tpu_torch fills (plain PyTorch versions, CPU) against the Pallas
 kernels of ``vacmap_tpu.ops.affine_pallas`` in interpret mode: the lo|ex
-planes must be byte-identical.  The aligner's CIGARs must equal the host
-aligner's."""
+planes and the scan route's packed op streams must be byte-identical.
+The aligner's CIGARs must equal the host aligner's."""
 
 import numpy as np
 import pytest
@@ -10,12 +10,13 @@ import torch
 from vacmap_tpu import native
 from vacmap_tpu.ops.affine_pallas import (
     PallasFillAligner, _fill_and_rowruns, _fill_and_rowruns_banded,
-    pack_chars, pack_plane,
+    _fill_and_traceback, pack_chars, pack_plane,
 )
 from vacmap_tpu.ops.affine_ref import align2p
 from vacmap_tpu_torch.ops.affine_fill import (
-    TorchFillAligner, band_eligible, fill_rowruns, fill_rowruns_banded,
-    fill_rowruns_banded_ref, fill_rowruns_ref, make_qshift,
+    BANDED, TorchFillAligner, band_eligible, fill_rowruns, fill_rowruns_banded,
+    fill_rowruns_banded_ref, fill_rowruns_ref, fill_traceback,
+    fill_traceback_ref, make_qshift,
 )
 
 GLOBAL = dict(match=2, mismatch=-4, gap_open_1=4, gap_extend_1=2,
@@ -221,10 +222,112 @@ def test_fill_wrappers_take_plain_version_on_cpu():
     tT[0, :90] = t
     tQ[0, : len(q)] = q
     lens = np.array([[90, len(q)]], np.int32)
-    n0, b0 = fill_rowruns.launches, fill_rowruns_banded.launches
+    counts = (fill_rowruns.launches, fill_rowruns_banded.launches,
+              fill_traceback.launches)
     assert torch.equal(fill_rowruns(_t(tT), _t(tQ), _t(lens)),
                        fill_rowruns_ref(_t(tT), _t(tQ), _t(lens)))
     qs = _t(make_qshift(tQ, lens[:, 0], lens[:, 1], 256))
     assert torch.equal(fill_rowruns_banded(_t(tT), qs, _t(lens)),
                        fill_rowruns_banded_ref(_t(tT), qs, _t(lens)))
-    assert (fill_rowruns.launches, fill_rowruns_banded.launches) == (n0, b0)
+    tl, ql = _t(lens[:, 0].copy()), _t(lens[:, 1].copy())
+    assert torch.equal(fill_traceback(_t(tT), _t(tQ), tl, ql),
+                       fill_traceback_ref(_t(tT), _t(tQ), tl, ql))
+    assert (fill_rowruns.launches, fill_rowruns_banded.launches,
+            fill_traceback.launches) == counts
+
+
+def _scan_cases(rng, N):
+    """test_affine_pallas.test_rowrun_traceback_interpret_exact's cases (140
+    bp insert, 150 bp delete, 1 bp, full bucket, I and D drains, two
+    mutated pairs); at N = 512 the I drain is 300 long, a run of more
+    than 255 insertions in one row."""
+    cases = []
+    t = rng.integers(0, 4, 100).astype(np.uint8)
+    cases.append((t, np.concatenate(
+        [t[:50], rng.integers(0, 4, 140).astype(np.uint8), t[50:]])))
+    q = rng.integers(0, 4, 80).astype(np.uint8)
+    cases.append((np.concatenate(
+        [q[:30], rng.integers(0, 4, 150).astype(np.uint8), q[30:]]), q))
+    cases.append((np.array([1], np.uint8), np.array([1], np.uint8)))
+    tf = rng.integers(0, 4, N).astype(np.uint8)
+    qf = tf.copy()
+    m = rng.random(N) < 0.12
+    qf[m] = rng.integers(0, 4, int(m.sum()))
+    cases.append((tf, qf))
+    cases.append((np.array([0, 1], np.uint8),
+                  rng.integers(0, 4, 230 if N == 256 else 300).astype(np.uint8)))
+    cases.append((rng.integers(0, 4, 230).astype(np.uint8),
+                  np.array([3, 1], np.uint8)))  # D drain
+    for _ in range(2):
+        cases.append(_mut(rng, int(rng.integers(40, N - 10)), err=0.1))
+    return cases
+
+
+@pytest.mark.parametrize("N", [256, 512])
+def test_scan_fill_stream_matches_pallas(N):
+    """``fill_traceback_ref`` against ``_fill_and_traceback`` (Pallas
+    ``_fill_kernel`` in interpret mode plus its XLA walk) at B = 8: the
+    packed streams are byte-identical, and decode to ``align2p``'s
+    CIGARs."""
+    rng = np.random.default_rng(27 + N)
+    cases = _scan_cases(rng, N)
+    B = len(cases)
+    tT = np.full((B, N), 4, np.uint8)
+    tQ = np.full((B, N), 4, np.uint8)
+    t_len = np.ones(B, np.int32)
+    q_len = np.ones(B, np.int32)
+    for i, (t, q) in enumerate(cases):
+        tT[i, : len(t)] = t
+        tQ[i, : len(q)] = q
+        t_len[i], q_len[i] = len(t), len(q)
+    want = np.asarray(_fill_and_traceback(
+        tT.astype(np.int32), tQ.astype(np.int32), t_len, q_len, N=N,
+        interpret=True))
+    got = fill_traceback_ref(_t(tT), _t(tQ), _t(t_len), _t(q_len)).numpy()
+    assert got.dtype == np.uint8 and got.shape == want.shape == (N // 2, B)
+    np.testing.assert_array_equal(got, want)
+    for eqx in (False, True):
+        cig = [native.ops_to_cigar(o)
+               for o in native.decode_tb_ops(got, cases, eqx=eqx)]
+        assert cig == [align2p(t, q, eqx=eqx, **GLOBAL).cigar for t, q in cases]
+
+
+def test_fetch_packed_gives_one_stream_on_every_route(monkeypatch):
+    """fetch_packed of the row-run route, the banded route (jobs without
+    escalation) and the scan route: the same op streams."""
+    rng = np.random.default_rng(28)
+    cases = [_mut(rng, int(rng.integers(20, 200)), err=0.08) for _ in range(6)]
+    B = len(cases)
+    tT = np.full((B, 256), 4, np.uint8)
+    tQ = np.full((B, 256), 4, np.uint8)
+    t_len = np.array([len(t) for t, _ in cases], np.int32)
+    q_len = np.array([len(q) for _, q in cases], np.int32)
+    for i, (t, q) in enumerate(cases):
+        tT[i, : len(t)] = t
+        tQ[i, : len(q)] = q
+    al = TorchFillAligner(device="cpu")
+    rr = al.fetch_packed(al.dispatch_padded(tT, tQ, t_len, q_len, 256))
+    h = al.dispatch_padded(tT, tQ, t_len, q_len, 256 | BANDED)
+    assert not al.fetch(h)[3].any()  # no escalation
+    banded = al.fetch_packed(h)
+    monkeypatch.setenv("VACMAP_TPU_FILL_SCAN", "1")
+    h = al.dispatch_padded(tT, tQ, t_len, q_len, 256)
+    assert h[0] == "scan" and al.fetch(h)[0] == "packed"
+    np.testing.assert_array_equal(rr, al.fetch_packed(h))
+    np.testing.assert_array_equal(rr, banded)
+    al.prewarm(batch_sizes=(16,), buckets=(256, 256 | BANDED))
+
+
+def test_aligner_scan_route_matches_host(monkeypatch):
+    """VACMAP_TPU_FILL_SCAN=1 with the band off: every device job takes the
+    scan route, and the CIGARs are the host aligner's."""
+    monkeypatch.setenv("VACMAP_TPU_FILL_SCAN", "1")
+    monkeypatch.setenv("VACMAP_TPU_NO_BANDED_FILL", "1")
+    rng = np.random.default_rng(29)
+    pairs = [_mut(rng, int(rng.integers(30, 240))) for _ in range(8)]
+    pairs.append(_mut(rng, 200, ins=120))
+    pairs.append(_mut(rng, 300, dele=110))
+    al = TorchFillAligner(device="cpu")
+    assert not al.banded
+    got = al.align_batch(pairs, eqx=True)
+    assert [g.cigar for g in got] == _cigars_native(pairs)

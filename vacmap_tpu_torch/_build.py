@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of this package.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a
-plain C interface, ``build/vacmap_tpu_torch/libvacmap_kernels.so`` under
-the checkout root, loaded with ctypes.  The build runs at first use and
-is reused while a hash of the sources and flags is unchanged.  A missing
-``nvcc`` or a failed build raises: there is no fallback.
+``nvcc`` compiles every ``csrc/*.cu`` (one compiler process per source,
+all started together) and links the objects into one shared library with
+a plain C interface, ``build/vacmap_tpu_torch/libvacmap_kernels.so``
+under the checkout root, loaded with ctypes.  The build runs at first use
+and is reused while a hash of the sources and flags is unchanged.  A
+missing ``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no FMA contraction and no fast math: the chain DP's f32 scores must
     # round like the reference's separate multiply and add
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -44,6 +45,8 @@ _SIGNATURES = {
                          _P],
     "fill_banded_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+    "fill_scan_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
 }
 
 
@@ -81,15 +84,30 @@ def build() -> Path:
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{p.stem}.{tag}.o" for p in units]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(units, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    results = [(c, p.communicate()[0], p.returncode)
+               for c, p in zip(cmds, procs)]
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in results):
+        r = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, r.stdout + r.stderr, r.returncode))
+    (BUILD_DIR / "nvcc.log").write_text("".join(
+        " ".join(c) + "\n" + out for c, out, _ in results))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(c, out, rc) for c, out, rc in results if rc != 0]
+    if failed:
+        c, out, rc = failed[0]
         raise DeviceKernelError(
-            f"nvcc failed (rc {r.returncode}):\n{r.stderr[-4000:]}")
+            f"nvcc failed (rc {rc}) on {c[-1]}:\n{out[-4000:]}")
     os.replace(tmp, so)
     stamp.write_text(digest)
     return so

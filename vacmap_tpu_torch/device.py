@@ -16,13 +16,16 @@ class DeviceKernelError(RuntimeError):
 
 def resolve_device(name: str = "cuda") -> torch.device:
     """``"cuda"`` (or ``"cuda:N"``) or ``"cpu"`` -> torch.device.  Raises
-    when CUDA is asked for and no card is visible."""
+    when CUDA is asked for and no card is visible.
+
+    Safe before a fork: ``torch.cuda.device_count()`` asks NVML first and
+    then does not set CUDA up in this process, so a forked child (the
+    fill service) can still do so."""
     dev = torch.device(name)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
+        if torch.cuda.device_count() < 1:
             raise DeviceKernelError(
-                f"device {name!r} requested but torch.cuda.is_available() "
-                "is false")
+                f"device {name!r} requested but torch sees no CUDA card")
         return dev
     if dev.type == "cpu":
         return dev

@@ -1,20 +1,26 @@
-"""Base-level global two-piece affine fills with a row-run traceback
+"""Base-level global two-piece affine fills with their tracebacks
 (counterpart of ``vacmap_tpu/ops/affine_pallas.py``).
 
-Two kernels, each with its plain PyTorch version in this module:
+Three kernels, each with its plain PyTorch version in this module:
 
 * ``fill_rowruns`` (csrc/fill_full.cu, replaces ``_fill_tb_kernel``):
-  the full N x N DP, N in {256, 512}.
+  the full N x N DP, N in {256, 512}, with a row-run traceback.
 * ``fill_rowruns_banded`` (csrc/fill_banded.cu, replaces
   ``_fill_tb_kernel_banded``): the same DP over a 128-lane offset-space
   band, with the ESCALATE flag in ex bit 7.
+* ``fill_traceback`` (csrc/fill_scan.cu, replaces ``_fill_and_traceback``:
+  ``_fill_kernel`` and its lockstep scan): the full N x N DP, then one
+  2-bit op per step over 2N steps, packed (2N/4, B) uint8.  The route of
+  ``dispatch_padded`` under ``VACMAP_TPU_FILL_SCAN=1``.
 
 Scoring: match 2, mismatch -4, gap cost min(4 + 2l, 24 + l); op priority
-DIAG > E1 > E2 > F1 > F2; ext flags 8/16/32/64.  Both write one (2N,)
-uint8 row per job: lanes [0, N) lo = n_ins & 255 and [N, 2N) ex = is_diag
-| (n_ins >> 8) << 1 for matrix row l+1 at lane l, the planes
-``native.decode_rowruns`` decodes.  Values are f32 with the reference's
-NEG = -1e9, so out-of-band and unreachable cells round exactly as there.
+DIAG > E1 > E2 > F1 > F2; ext flags 8/16/32/64.  The row-run kernels
+write one (2N,) uint8 row per job: lanes [0, N) lo = n_ins & 255 and
+[N, 2N) ex = is_diag | (n_ins >> 8) << 1 for matrix row l+1 at lane l,
+the planes ``native.decode_rowruns`` decodes; the scan kernel writes the
+stream ``native.decode_tb_ops`` decodes.  Values are f32 with the
+reference's NEG = -1e9, so out-of-band and unreachable cells round
+exactly as there.
 
 Inputs are uint8 character planes (no 2-bit packing): a base code 4
 mismatches everything, as in the host aligner.
@@ -22,6 +28,7 @@ mismatches everything, as in the host aligner.
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -227,18 +234,16 @@ def _exit_op(b, j, s):
     return is_m, s
 
 
-def fill_rowruns_ref(tT: torch.Tensor, tQ: torch.Tensor, lens: torch.Tensor,
-                     *, match=2, mismatch=-4, o1=4, e1=2, o2=24,
-                     e2=1) -> torch.Tensor:
-    """Plain version of ``fill_rowruns``: (B, N) target/query planes and
-    (B, 2) lens (t_len, q_len) -> (B, 2N) uint8 lo|ex planes."""
+def _fill_bits_ref(tT: torch.Tensor, tQ: torch.Tensor, rows: int, *, match,
+                   mismatch, o1, e1, o2, e2) -> torch.Tensor:
+    """The full N x N fill of (B, N) target/query planes: traceback bytes
+    of matrix rows 1..rows as a (max(rows, 1), B, N) uint8 table, row i
+    at index i - 1 and column j at lane j - 1."""
     B, N = tT.shape
     dev = tT.device
     f32 = torch.float32
     tT = tT.to(torch.int32)
     tQ = tQ.to(torch.int32)
-    tl = lens[:, 0].to(torch.int64)
-    ql = lens[:, 1].to(torch.int64)
     f_mat, f_mis = float(match), float(mismatch)
     f_e1, f_e2, f_o1, f_o2 = float(e1), float(e2), float(o1), float(o2)
     f_o1e1, f_o2e2 = float(o1 + e1), float(o2 + e2)
@@ -253,7 +258,6 @@ def fill_rowruns_ref(tT: torch.Tensor, tQ: torch.Tensor, lens: torch.Tensor,
     H = (-gap_l1).expand(B, N).clone()
     E1 = torch.full((B, N), NEG, dtype=f32, device=dev)
     E2 = torch.full((B, N), NEG, dtype=f32, device=dev)
-    rows = int(tl.max()) if B else 0  # no output depends on later rows
     bits = torch.zeros((max(rows, 1), B, N), dtype=torch.uint8, device=dev)
     for i in range(1, rows + 1):
         h0_prev = -gap_l[i - 1]  # H(i-1, 0)
@@ -276,6 +280,21 @@ def fill_rowruns_ref(tT: torch.Tensor, tQ: torch.Tensor, lens: torch.Tensor,
         Hn = torch.maximum(H0, torch.maximum(F1, F2))
         bits[i - 1] = _cell_bits(Hn, diag, E1n, E2n, F1, F2, E1, E2, f_e1, f_e2)
         H, E1, E2 = Hn, E1n, E2n
+    return bits
+
+
+def fill_rowruns_ref(tT: torch.Tensor, tQ: torch.Tensor, lens: torch.Tensor,
+                     *, match=2, mismatch=-4, o1=4, e1=2, o2=24,
+                     e2=1) -> torch.Tensor:
+    """Plain version of ``fill_rowruns``: (B, N) target/query planes and
+    (B, 2) lens (t_len, q_len) -> (B, 2N) uint8 lo|ex planes."""
+    B, N = tT.shape
+    dev = tT.device
+    tl = lens[:, 0].to(torch.int64)
+    ql = lens[:, 1].to(torch.int64)
+    rows = int(tl.max()) if B else 0  # no output depends on later rows
+    bits = _fill_bits_ref(tT, tQ, rows, match=match, mismatch=mismatch,
+                          o1=o1, e1=e1, o2=o2, e2=e2)
 
     # row-run traceback: rows t_len..1 in lockstep across jobs
     lo = torch.zeros((B, N), dtype=torch.int64, device=dev)
@@ -313,6 +332,57 @@ def fill_rowruns_ref(tT: torch.Tensor, tQ: torch.Tensor, lens: torch.Tensor,
         ex[:, r - 1] = torch.where(active, is_m.long() | ((n_ins >> 8) << 1),
                                    ex[:, r - 1])
     return torch.cat([lo, ex], dim=1).to(torch.uint8)
+
+
+def fill_traceback_ref(tT: torch.Tensor, tQ: torch.Tensor,
+                       t_len: torch.Tensor, q_len: torch.Tensor, *, match=2,
+                       mismatch=-4, o1=4, e1=2, o2=24,
+                       e2=1) -> torch.Tensor:
+    """Plain version of ``fill_traceback``: (B, N) target/query planes and
+    (B,) lengths -> the packed (2N/4, B) uint8 op stream of
+    ``_fill_and_traceback``: step s of job b in bits 2(s % 4).. of byte
+    (s // 4, b); 0 = M, 1 = I, 2 = D from the alignment end back to
+    (0, 0), then 3."""
+    B, N = tT.shape
+    dev = tT.device
+    S = 2 * N
+    tl = t_len.to(torch.int64).clamp(0, N)
+    ql = q_len.to(torch.int64).clamp(0, N)
+    rows = int(tl.max()) if B else 0
+    flat = _fill_bits_ref(tT, tQ, rows, match=match, mismatch=mismatch,
+                          o1=o1, e1=e1, o2=o2, e2=e2).reshape(-1).to(torch.int64)
+    lanes = torch.arange(B, dtype=torch.int64, device=dev)
+    i, j = tl.clone(), ql.clone()
+    state = torch.zeros(B, dtype=torch.int64, device=dev)
+    ops = torch.full((S, B), 3, dtype=torch.int64, device=dev)
+    # every step moves i or j down by one until both are 0: no path is
+    # longer than t_len + q_len, and the rest of the stream stays 3
+    steps = int((tl + ql).max()) if B else 0
+    for s in range(steps):
+        done = (i <= 0) & (j <= 0)
+        inside = (i > 0) & (j > 0)
+        b = flat[((i.clamp_min(1) - 1) * B + lanes) * N + j.clamp_min(1) - 1]
+        eff = torch.where(state > 0, state, b & 7)
+        # matrix-edge forcing: i == 0 drains the query (I), j == 0 the
+        # target (D)
+        eff = torch.where((i <= 0) & ~done, 3, eff)
+        eff = torch.where((j <= 0) & ~done, 1, eff)
+        is_diag = eff == 0
+        is_del = (eff == 1) | (eff == 2)
+        is_ins = (eff == 3) | (eff == 4)
+        ops[s] = torch.where(done, 3, torch.where(
+            is_diag, 0, torch.where(is_ins, 1, 2)))
+        di = (~done & (is_diag | is_del)).long()
+        dj = (~done & (is_diag | is_ins)).long()
+        ext_bit = torch.full_like(eff, 8) << torch.clamp_min(eff - 1, 0)
+        # runs continue only inside the matrix (edge moves are drains)
+        state = torch.where(~done & inside & (is_del | is_ins)
+                            & ((b & ext_bit) > 0), eff, 0)
+        i = i - di
+        j = j - dj
+    o = ops.reshape(S // 4, 4, B)
+    return (o[:, 0] | (o[:, 1] << 2) | (o[:, 2] << 4)
+            | (o[:, 3] << 6)).to(torch.uint8)
 
 
 def fill_rowruns_banded_ref(tT: torch.Tensor, qs: torch.Tensor,
@@ -539,6 +609,52 @@ def fill_rowruns_banded(tT: torch.Tensor, qs: torch.Tensor, lens: torch.Tensor,
 fill_rowruns_banded.launches = 0
 
 
+def fill_traceback(tT: torch.Tensor, tQ: torch.Tensor, t_len: torch.Tensor,
+                   q_len: torch.Tensor, *, match=2, mismatch=-4, o1=4, e1=2,
+                   o2=24, e2=1) -> torch.Tensor:
+    """Full-width fill + lockstep op walk.  tT, tQ (B, N) uint8, t_len,
+    q_len (B,) int32 -> (2N/4, B) uint8 packed op stream.  CPU tensors
+    take the plain version; CUDA tensors launch csrc/fill_scan.cu (or
+    raise DeviceKernelError)."""
+    kw = dict(match=match, mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2)
+    dev = tT.device
+    if dev.type == "cpu":
+        return fill_traceback_ref(tT, tQ, t_len, q_len, **kw)
+    if dev.type != "cuda":
+        raise DeviceKernelError(f"scan fill kernel: unsupported device {dev}")
+    if tT.dim() != 2:
+        raise DeviceKernelError(f"tT must be (B, N), got {tuple(tT.shape)}")
+    B, N = tT.shape
+    if N % 32 or not 32 <= N <= 1024:
+        raise DeviceKernelError(f"scan fill kernel takes N in [32, 1024], N % 32 == 0; got {N}")
+    check_tensor("tT", tT, torch.uint8, (B, N), dev)
+    check_tensor("tQ", tQ, torch.uint8, (B, N), dev)
+    check_tensor("t_len", t_len, torch.int32, (B,), dev)
+    check_tensor("q_len", q_len, torch.int32, (B,), dev)
+    lib = library()
+    packed = torch.empty((N // 2, B), dtype=torch.uint8, device=dev)
+    if B == 0:
+        return packed
+    # the (N, N) byte table of each job lives in device memory; chunk the
+    # batch so one launch's table stays under 1 GiB
+    chunk = max(1, BITS_BYTES_PER_LAUNCH // (N * N))
+    bits = torch.empty((min(B, chunk), N, N), dtype=torch.uint8, device=dev)
+    stream = cuda_stream(dev)
+    for c0 in range(0, B, chunk):
+        c1 = min(B, c0 + chunk)
+        rc = lib.fill_scan_launch(
+            tT[c0:c1].data_ptr(), tQ[c0:c1].data_ptr(), t_len[c0:c1].data_ptr(),
+            q_len[c0:c1].data_ptr(), bits.data_ptr(), packed.data_ptr() + c0,
+            c1 - c0, N, B, match, mismatch, o1, e1, o2, e2, stream)
+        if rc != 0:
+            raise DeviceKernelError(f"fill_scan kernel launch failed: cudaError {rc}")
+        count_launch(fill_traceback)
+    return packed
+
+
+fill_traceback.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # host-facing aligner
 # ---------------------------------------------------------------------------
@@ -550,16 +666,26 @@ class TorchFillAligner:
     AlignResult (cigar only).  Buckets 256/512; band-eligible jobs
     (|dq| <= 95) go to the banded kernel and its escalations re-run
     full-width; jobs above the largest bucket or with an empty side take
-    the host aligner."""
+    the host aligner.
+
+    ``banded`` (default: unless ``VACMAP_TPU_NO_BANDED_FILL`` is set)
+    turns the banded route on; the fill service reads it to build its
+    banded pseudo-buckets.  ``VACMAP_TPU_FILL_SCAN=1``, read at each
+    dispatch, sends full-width batches to the scan kernel instead of the
+    row-run kernel (same CIGARs)."""
 
     def __init__(self, buckets: Sequence[int] = (256, 512), match=2,
                  mismatch=-4, o1=4, e1=2, o2=24, e2=1,
-                 max_batch: int = 4096, device="cpu"):
+                 max_batch: int = 4096, device="cpu",
+                 banded: Optional[bool] = None):
         self.buckets = sorted(buckets)
         self.kw = dict(match=match, mismatch=mismatch, o1=o1, e1=e1,
                        o2=o2, e2=e2)
         self.max_batch = max_batch
         self.device = torch.device(device)
+        if banded is None:
+            banded = not os.environ.get("VACMAP_TPU_NO_BANDED_FILL")
+        self.banded = banded
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -567,52 +693,98 @@ class TorchFillAligner:
                 return b
         return -1
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _tensor(self, a: np.ndarray, dtype=np.uint8) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(self.device)
+
+    @staticmethod
+    def _download(x: torch.Tensor):
+        """Start the copy of a result to host memory: on a card, into
+        pinned memory behind an event, so the copy overlaps the caller's
+        next dispatch and ``fetch`` only waits for the event."""
+        if x.device.type != "cuda":
+            return x, None
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(x.device))
+        return host, ev
 
     # ------------------------------------------------------------------
     def dispatch_padded(self, tT: np.ndarray, tQ: np.ndarray,
-                        t_len: np.ndarray, q_len: np.ndarray, bucket: int,
-                        n_used: Optional[int] = None):
-        """Launch one pre-padded (B, bucket) uint8 batch on the device and
+                        t_len: np.ndarray, q_len: np.ndarray, bucket: int):
+        """Launch one padded (B, bucket) uint8 batch on the device and
         return a handle without waiting for it.  ``bucket | BANDED``
-        selects the banded kernel at T = bucket.  Only the first
-        ``n_used`` rows are fetched."""
-        B = tT.shape[0]
-        n = B if n_used is None else min(n_used, B)
-        lens = np.zeros((B, 2), np.int32)
-        lens[:, 0] = t_len
-        lens[:, 1] = q_len
-        if bucket & BANDED:
-            T = bucket & ~BANDED
-            qshift = make_qshift(tQ, t_len, q_len, T)
-            planes = fill_rowruns_banded(
-                self._tensor(tT[:, :T].astype(np.uint8)),
-                self._tensor(qshift), self._tensor(lens), **self.kw)
-            tag = "rrb"
-        else:
-            T = bucket
-            planes = fill_rowruns(
-                self._tensor(tT.astype(np.uint8)),
-                self._tensor(tQ.astype(np.uint8)), self._tensor(lens),
-                **self.kw)
-            tag = "rrp"
-        return (tag, planes[:n], np.asarray(t_len[:n], np.int64),
-                np.asarray(q_len[:n], np.int64), T)
+        selects the banded kernel at T = bucket."""
+        with device_call("fill dispatch"):
+            t_len = np.asarray(t_len, np.int64)
+            q_len = np.asarray(q_len, np.int64)
+            lens = np.stack([t_len, q_len], axis=1)
+            if bucket & BANDED:
+                T = bucket & ~BANDED
+                qshift = make_qshift(tQ, t_len, q_len, T)
+                out = fill_rowruns_banded(
+                    self._tensor(tT[:, :T]), self._tensor(qshift),
+                    self._tensor(lens, np.int32), **self.kw)
+                tag = "rrb"
+            elif os.environ.get("VACMAP_TPU_FILL_SCAN"):
+                T = bucket
+                out = fill_traceback(
+                    self._tensor(tT), self._tensor(tQ),
+                    self._tensor(t_len, np.int32),
+                    self._tensor(q_len, np.int32), **self.kw)
+                tag = "scan"
+            else:
+                T = bucket
+                out = fill_rowruns(self._tensor(tT), self._tensor(tQ),
+                                   self._tensor(lens, np.int32), **self.kw)
+                tag = "rrp"
+            return (tag, *self._download(out), T, t_len, q_len)
 
     def fetch(self, handle):
         """Blocking download of a dispatch_padded handle:
 
           ("rr", lo (B, N) uint8, ex (B, N) uint8)  -- full-width planes
           ("rrb", lo, ex & 0x7F, flags (B,) bool)  -- banded planes
+          ("packed", (2N/4, B) uint8)  -- op stream (scan route)
         """
-        tag, planes, _t_len, _q_len, N = handle
-        arr = planes.cpu().numpy()
+        tag, host, ev, N, _t_len, _q_len = handle
+        with device_call("fill download"):
+            if ev is not None:
+                ev.synchronize()
+            arr = host.numpy()
+        if tag == "scan":
+            return ("packed", arr)
         if tag == "rrb":
             ex = arr[:, N : 2 * N]
             flags = (ex[:, 0] & 0x80) != 0
             return ("rrb", arr[:, :N], ex & 0x7F, flags)
         return ("rr", arr[:, :N], arr[:, N:])
+
+    def fetch_packed(self, handle) -> np.ndarray:
+        """Blocking download of a dispatch_padded handle as the packed op
+        stream (2N/4, B) of any route (banded handles: escalated jobs'
+        streams are meaningless; ``fetch`` has their flags)."""
+        res = self.fetch(handle)
+        if res[0] == "packed":
+            return res[1]
+        _, _, _, N, t_len, q_len = handle
+        return rowruns_to_packed(res[1], res[2], t_len, q_len, N)
+
+    def prewarm(self, batch_sizes: Sequence[int] = (64,),
+                buckets: Optional[Sequence[int]] = None):
+        """One launch per bucket and batch size on one-base jobs: builds
+        and loads the kernel library and sets up the device before
+        traffic (there are no per-shape compiles to hide)."""
+        for bucket in (buckets if buckets is not None else self.buckets):
+            T = bucket & ~BANDED
+            for B in batch_sizes:
+                tT = np.full((B, T), 4, np.uint8)
+                tQ = np.full((B, T), 4, np.uint8)
+                tT[:, 0] = 1
+                tQ[:, 0] = 1
+                lens = np.ones(B, np.int32)
+                self.fetch_packed(
+                    self.dispatch_padded(tT, tQ, lens, lens, bucket))
 
     # ------------------------------------------------------------------
     def _host(self, t, q, eqx):
@@ -633,7 +805,7 @@ class TorchFillAligner:
             if b < 0 or len(t) == 0 or len(q) == 0:
                 results[i] = self._host(t, q, eqx)
                 continue
-            if abs(len(q) - len(t)) <= BAND_W - 2 * BAND_R - 1:
+            if self.banded and abs(len(q) - len(t)) <= BAND_W - 2 * BAND_R - 1:
                 b |= BANDED
             groups.setdefault(b, []).append(i)
         for bucket, idxs in groups.items():
@@ -655,32 +827,37 @@ class TorchFillAligner:
             tQ[b, : len(q)] = q
             t_len[b] = len(t)
             q_len[b] = len(q)
-        with device_call("fill device call"):
-            fetched = self.fetch(self.dispatch_padded(tT, tQ, t_len, q_len,
-                                                      bucket))
+        fetched = self.fetch(self.dispatch_padded(tT, tQ, t_len, q_len, bucket))
         if fetched[0] == "rrb":
             _, lo, ex, flags = fetched
             ok_rows = np.flatnonzero(~flags)
-            self._decode(pairs, [idxs[r] for r in ok_rows], lo[ok_rows],
-                         ex[ok_rows], T, eqx, results)
+            self._decode(pairs, [idxs[r] for r in ok_rows],
+                         ("rr", lo[ok_rows], ex[ok_rows]), T, eqx, results)
             esc = [idxs[r] for r in np.flatnonzero(flags)]
             if esc:  # band-edge escalations: full-width re-run
                 self._run_group(pairs, esc, T, eqx, results)
             return
-        _, lo, ex = fetched
-        self._decode(pairs, idxs, lo, ex, T, eqx, results)
+        self._decode(pairs, idxs, fetched, T, eqx, results)
 
     @staticmethod
-    def _decode(pairs, idxs, lo, ex, N, eqx, results):
+    def _decode(pairs, idxs, fetched, N, eqx, results):
+        """Row-run planes ("rr", lo, ex) or a packed op stream ("packed",
+        cols) of the jobs ``idxs`` -> their AlignResults."""
         if not idxs:
             return
         sub = [pairs[i] for i in idxs]
-        decoded = native.decode_rowruns(lo, ex, sub, eqx=eqx)
+        if fetched[0] == "packed":
+            packed = fetched[1]
+            decoded = native.decode_tb_ops(packed, sub, eqx=eqx)
+        else:
+            _, lo, ex = fetched
+            decoded = native.decode_rowruns(lo, ex, sub, eqx=eqx)
+            if decoded is None:
+                t_len = np.array([len(t) for t, _ in sub], np.int64)
+                q_len = np.array([len(q) for _, q in sub], np.int64)
+                packed = rowruns_to_packed(lo, ex, t_len, q_len, N)
         if decoded is None:  # native lib unavailable: decode in python
-            t_len = np.array([len(t) for t, _ in sub], np.int64)
-            q_len = np.array([len(q) for _, q in sub], np.int64)
-            decoded = _decode_packed_python(
-                rowruns_to_packed(lo, ex, t_len, q_len, N), sub, eqx=eqx)
+            decoded = _decode_packed_python(packed, sub, eqx=eqx)
         for i, ops in zip(idxs, decoded):
             t, q = pairs[i]
             results[i] = AlignResult(native.ops_to_cigar(ops), False, len(q),

@@ -2,11 +2,11 @@
 ``vacmap_tpu/parallel/device_service.py``).
 
 The finishing threads of the batched executor each ask for a few local
-chain DPs and one fill batch per read.  ``TorchAggregatingChainBackend``
-merges the chain jobs of concurrently finishing reads into one kernel
-launch per parameter group; the fill side reuses the reference's
-``AggregatingAligner`` around ``TorchFillAligner``.  A device error is
-raised to every waiting caller; nothing falls back to the host.
+chain DPs per read.  ``TorchAggregatingChainBackend`` merges the chain
+jobs of concurrently finishing reads into one kernel launch per
+parameter group (the fills go through the fill service,
+``parallel/fill_service.py``).  A device error is raised to every
+waiting caller; nothing falls back to the host.
 """
 
 from __future__ import annotations
@@ -17,10 +17,7 @@ from typing import List
 
 import torch
 
-from vacmap_tpu.parallel.device_service import AggregatingAligner
-
 from ..device import DeviceKernelError
-from ..ops.affine_fill import TorchFillAligner
 from ..ops.chain import chain_results, device_chainable
 
 # a dispatcher stops waiting for peers once this many jobs queue up
@@ -104,8 +101,3 @@ class TorchAggregatingChainBackend:
                     r["error"] = DeviceKernelError("chain dispatch interrupted")
                 r["event"].set()
 
-
-def device_fill_aligner(device) -> AggregatingAligner:
-    """The cross-read batching fill aligner on ``device`` (the reference's
-    AggregatingAligner re-raises device errors to its callers)."""
-    return AggregatingAligner(TorchFillAligner(device=device))

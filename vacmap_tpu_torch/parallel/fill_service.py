@@ -1,0 +1,915 @@
+"""Async pipelined device fill service (counterpart of
+``vacmap_tpu/parallel/fill_service.py``).
+
+The base-level fills of many mapping threads or processes go to one
+owner of the device:
+
+  dispatcher thread:  drain the request queue -> group jobs by length
+      bucket (and banded pseudo-bucket) -> pad -> launch (the kernels run
+      asynchronously; the result's copy to pinned host memory is queued
+      behind them) -> push the handles into a bounded in-flight queue
+      (depth 2: double buffering, so dispatch N+1 overlaps download N)
+  downloader thread:  pop handles -> wait for the copy -> route the
+      row-run planes or packed op columns back to each requester
+
+CIGAR decode stays on the requester's side (the C++ decoders).
+
+Two transports share the server core:
+
+  * in-process (``AsyncFillAligner``): queue.Queue, for the batched
+    executor (``--backend jax``);
+  * cross-process (``start_fill_server`` / ``FillClient``):
+    multiprocessing queues, so the CLI's fork workers all send their
+    fills to ONE device-owning process.  Only that process touches CUDA:
+    it is forked before the workers, from a parent that has not set
+    CUDA up, and the queues carry numpy arrays only.
+
+Routes to the host, as in the reference: jobs over the largest bucket,
+with an empty side or with an ambiguous base (code 4); band escalations;
+requests made before the service is ready, over the in-flight job cap or
+while the latency governor is closed; and every request after a
+calibrated no-go (``force=False``, ``--device-fills auto``).  The
+clients count these routes (shared counters), and the stats line reports
+them beside the jobs the kernels served.  A device error is not routed
+to the host: the waiting client raises DeviceKernelError, and the
+cross-process service reports it to its parent.  Neither is a late
+response: a request sent to the service is waited for, and one with no
+answer within the wait's bound raises.  The reference's edit-distance
+job kind (a permanent stub there) is not ported: clients' ``edit_batch``
+answers all-None at once.
+"""
+
+from __future__ import annotations
+
+import logging
+import multiprocessing as mp
+import os
+import pickle
+import queue
+import resource
+import sys
+import threading
+import time
+import traceback
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from vacmap_tpu import native
+from vacmap_tpu.ops.affine_ref import AlignResult
+from vacmap_tpu.parallel import fill_service as _ref
+from vacmap_tpu.parallel.fill_service import (
+    DEFAULT_BUCKETS, DEFAULT_SHAPE_B, DEPTH, MAX_JOBS, MAX_WAIT_MS,
+    N_DOWNLOADERS, QUIESCENT_S, pack_pairs,
+)
+from vacmap_tpu.pipeline.extend import _host_global_batch
+
+from ..device import DeviceKernelError, resolve_device
+from ..ops import affine_fill
+from ..ops.affine_fill import (
+    BANDED, TorchFillAligner, _decode_packed_python, band_eligible,
+    rowruns_to_packed,
+)
+
+log = logging.getLogger("vacmap_tpu_torch")
+
+# cross-process service status (shared ctypes int)
+STARTING, SERVING, DECLINED, FAILED = 0, 1, 2, 3
+# clients' route counters (shared ctypes array, in jobs): every job
+# submitted, those sent to the service, and those the admission gate
+# bounced to host fills, by the in-flight cap (capped) or by the latency
+# governor (governed); the rest were submitted before the service was
+# ready or after a calibrated no-go
+SUBMITTED, OFFLOADED, CAPPED, GOVERNED = range(4)
+WAIT_S = 600.0  # bound on one wait for the service's response
+FILL_KERNELS = {"fill_full": affine_fill.fill_rowruns,
+                "fill_banded": affine_fill.fill_rowruns_banded,
+                "fill_scan": affine_fill.fill_traceback}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of the fill kernels in this process so far."""
+    return {k: w.launches for k, w in FILL_KERNELS.items()}
+
+
+def _error_text(err: BaseException) -> str:
+    return f"{type(err).__name__}: {err}"
+
+
+def _count(routes, kind: int, n: int) -> None:
+    with routes.get_lock():
+        routes[kind] += n
+
+
+# ---------------------------------------------------------------------------
+# server core (transport-agnostic)
+# ---------------------------------------------------------------------------
+
+
+class _ServerCore:
+    """Dispatcher + downloader pipeline around a ``TorchFillAligner``
+    (``dispatch_padded(tT, tQ, t_len, q_len, bucket)`` -> handle,
+    ``fetch(handle)``).  DEFAULT_SHAPE_B caps the jobs of one launch per
+    bucket; a launch carries exactly the jobs of its chunk.
+
+    ``on_error(msg)`` is called once, at the first failed dispatch or
+    download; every request of that batch, and of every later one, is
+    answered with an error slot.  ``routes`` holds the clients' route
+    counters (SUBMITTED, OFFLOADED, CAPPED, GOVERNED)."""
+
+    def __init__(self, aligner, buckets=DEFAULT_BUCKETS,
+                 max_wait_ms=MAX_WAIT_MS, force: bool = False,
+                 n_clients: int = 1, on_error=None, routes=None):
+        self.aligner = aligner
+        self.routes = routes if routes is not None else mp.Array("q", 4)
+        # calibrated auto: offload pays only when the device's best-case
+        # pipelined fill rate beats the whole host's fill rate; measured
+        # at start-up.  force=True (--device-fills on) skips the gate.
+        self.force = force
+        self.n_clients = max(n_clients, 1)
+        self.competitive = True
+        self.calib = None  # (device_jobs_per_s, host_1core_jobs_per_s)
+        self.buckets = tuple(sorted(buckets))
+        self.shape_b = dict(DEFAULT_SHAPE_B)
+        for b in self.buckets:  # every bucket needs a chunk cap
+            self.shape_b.setdefault(b, 256)
+        # banded pseudo-buckets: band-eligible jobs take the banded
+        # kernel; jobs it flags (band-edge escalation) go back to the
+        # requester's host fill path via the "host" slot
+        self.band_ids = ()
+        if getattr(aligner, "banded", False):
+            self.band_ids = tuple(b | BANDED for b in self.buckets)
+            for bid in self.band_ids:
+                self.shape_b.setdefault(bid, self.shape_b[bid & ~BANDED])
+        self.max_wait = max_wait_ms / 1e3
+        self.inflight: "queue.Queue" = queue.Queue(maxsize=DEPTH)
+        self.error: Optional[str] = None
+        self._on_error = on_error
+        self._stats_lock = threading.Lock()
+        self._stats = {"calls": 0, "reqs": 0, "jobs": 0, "fetch_s": 0.0,
+                       "disp_cpu": 0.0, "dl_cpu": 0.0, "escal": 0,
+                       "host_slot": 0}
+        self._launch0 = launch_counts()  # reset once traffic may start
+
+    def prewarm(self):
+        """One warm launch per route, then (unless forced) the calibrated
+        go/no-go: ``competitive`` False means the device cannot beat the
+        host's own fill kernels here, and the deployment stays on host
+        fills."""
+        for b in self.band_ids + self.buckets:
+            self.aligner.prewarm(batch_sizes=(self.shape_b[b],), buckets=(b,))
+        if not self.force:
+            self.competitive = self._calibrate()
+        self._launch0 = launch_counts()
+
+    def _calibrate(self) -> bool:
+        """Measured go/no-go for the offload: the device's best-case
+        pipelined fill rate (4 back-to-back dispatches, fetches at the
+        end) against the host striped kernel's single-core rate on the
+        same jobs, times the number of clients (x0.75 margin: the
+        service's own host work is taken from the same cores)."""
+        b_id = self.band_ids[0] if self.band_ids else self.buckets[0]
+        b = b_id & ~BANDED
+        B = self.shape_b[b_id]
+        n = max(b * 3 // 4, 16)
+        rng = np.random.default_rng(0)
+        t_plane = rng.integers(0, 4, (B, b)).astype(np.uint8)
+        q_plane = t_plane.copy()
+        m = rng.random((B, b)) < 0.05
+        q_plane[m] = rng.integers(0, 4, int(m.sum())).astype(np.uint8)
+        t_plane[:, n:] = 4
+        q_plane[:, n:] = 4
+        lens = np.full(B, n, np.int32)
+
+        def dispatch():
+            return self.aligner.dispatch_padded(t_plane, q_plane, lens, lens,
+                                                b_id)
+
+        self.aligner.fetch(dispatch())  # warm
+        t0 = time.monotonic()
+        hs = [dispatch() for _ in range(4)]
+        for h in hs:
+            self.aligner.fetch(h)
+        dev_rate = 4 * B / max(time.monotonic() - t0, 1e-9)
+        jobs = [(t_plane[i, :n], q_plane[i, :n]) for i in range(min(B, 256))]
+        t0 = time.monotonic()
+        host_res = native.align2p_batch_native(jobs, eqx=False)
+        host_rate = len(jobs) / max(time.monotonic() - t0, 1e-9)
+        self.calib = (dev_rate, host_rate)
+        if host_res is None:
+            return True  # no native lib: host fills are the slow oracle
+        return dev_rate > host_rate * self.n_clients * 0.75
+
+    def fail(self, msg: str) -> None:
+        """Enter the error state (first message wins) and report it."""
+        first = self.error is None
+        if first:
+            self.error = msg
+        print(f"vacmap_tpu_torch fill service: device error: {msg}",
+              file=sys.stderr, flush=True)
+        if first and self._on_error is not None:
+            self._on_error(msg)
+
+    def _answer_error(self, pending, resp_put):
+        for client_id, req_id, *_ in pending:
+            try:
+                resp_put(client_id, (req_id, {"error": ("error", self.error)}))
+            except Exception:  # noqa: BLE001  a gone client waits no more
+                pass
+
+    # -- dispatcher ----------------------------------------------------
+    def run_dispatch(self, req_get, resp_put):
+        """req_get(timeout) -> (client_id, req_id, lens, buf) | None (stop);
+        resp_put(client_id, msg).  Blocks until the stop sentinel."""
+        pending = []
+        while True:
+            try:
+                item = req_get(0.05)
+            except queue.Empty:
+                continue
+            if item is None:
+                break
+            pending.append(item)
+            # accumulation window: let peers pile on (quiescence check:
+            # dispatch early when no new request arrives for a while)
+            deadline = time.monotonic() + self.max_wait
+            last_new = time.monotonic()
+            njobs = len(pending[0][2])
+            stop = False
+            while njobs < MAX_JOBS and time.monotonic() < deadline:
+                try:
+                    item = req_get(0.002)
+                except queue.Empty:
+                    if time.monotonic() - last_new >= QUIESCENT_S:
+                        break
+                    continue
+                if item is None:
+                    stop = True
+                    break
+                pending.append(item)
+                last_new = time.monotonic()
+                njobs += len(item[2])
+            self._dispatch_batch(pending, resp_put)
+            pending = []
+            if stop:
+                break
+        self.inflight.put(None)  # the downloader drains, then stops
+
+    def _dispatch_batch(self, pending, resp_put):
+        """A failed dispatch answers its requests with the error (and the
+        dispatcher lives on, so no client waits forever)."""
+        if self.error is None:
+            try:
+                self._dispatch_batch_inner(pending, resp_put)
+                return
+            except Exception as err:  # noqa: BLE001  reported to clients
+                traceback.print_exc(limit=6, file=sys.stderr)
+                self.fail(_error_text(err))
+        self._answer_error(pending, resp_put)
+
+    def _dispatch_batch_inner(self, pending, resp_put):
+        """Flatten requests -> bucket groups -> padded device dispatches,
+        in bulk numpy over the concatenated request buffers (no per-job
+        Python: the service's host CPU is taken from the mapping cores)."""
+        cpu0 = time.thread_time()
+        bufs = [p[3] for p in pending]
+        all_buf = bufs[0] if len(bufs) == 1 else np.concatenate(bufs)
+        lens_all = np.concatenate([p[2] for p in pending])  # (M, 2) int32
+        n_jobs_per_req = np.array([len(p[2]) for p in pending], np.int64)
+        job_req = np.repeat(np.arange(len(pending)), n_jobs_per_req)
+        job_ji = np.arange(len(job_req)) - np.repeat(
+            np.cumsum(n_jobs_per_req) - n_jobs_per_req, n_jobs_per_req)
+        t_lens = lens_all[:, 0].astype(np.int64)
+        q_lens = lens_all[:, 1].astype(np.int64)
+        pair_sz = t_lens + q_lens
+        t_offs = np.cumsum(pair_sz) - pair_sz  # start of each job's t
+        q_offs = t_offs + t_lens
+        # bucket of each job (-1 = host)
+        mx = np.maximum(t_lens, q_lens)
+        bucket_arr = np.full(len(mx), -1, np.int64)
+        for b in reversed(self.buckets):
+            bucket_arr[mx <= b] = b
+        bucket_arr[(t_lens == 0) | (q_lens == 0)] = -1
+        # jobs holding an ambiguous base (code 4) go to the host, as in
+        # the reference.  Nonzero jobs' byte spans tile all_buf, so one
+        # reduceat over their starts gives every job's largest code.
+        nz = pair_sz > 0
+        if len(all_buf) and nz.any():
+            seg_max = np.maximum.reduceat(all_buf, t_offs[nz])
+            amb = np.zeros(len(mx), bool)
+            amb[nz] = seg_max >= 4
+            bucket_arr[amb] = -1
+        if self.band_ids:
+            elig = band_eligible(t_lens, q_lens) & (bucket_arr > 0)
+            bucket_arr[elig] |= BANDED
+        handles = []  # (bucket, handle, job indices)
+        overflow = np.flatnonzero(bucket_arr < 0)
+        for b in self.band_ids + self.buckets:
+            idxs = np.flatnonzero(bucket_arr == b)
+            w = b & ~BANDED  # plane width
+            for cs in range(0, len(idxs), self.shape_b[b]):
+                chunk = idxs[cs : cs + self.shape_b[b]]
+                B = len(chunk)
+                tl = t_lens[chunk]
+                ql = q_lens[chunk]
+                tT = np.full((B, w), 4, np.uint8)
+                tQ = np.full((B, w), 4, np.uint8)
+                # bulk scatter: all chunk jobs' bytes in two fancy writes
+                rows = np.repeat(np.arange(B), tl)
+                within = np.arange(int(tl.sum())) - np.repeat(np.cumsum(tl) - tl, tl)
+                tT[rows, within] = all_buf[np.repeat(t_offs[chunk], tl) + within]
+                rows = np.repeat(np.arange(B), ql)
+                within = np.arange(int(ql.sum())) - np.repeat(np.cumsum(ql) - ql, ql)
+                tQ[rows, within] = all_buf[np.repeat(q_offs[chunk], ql) + within]
+                h = self.aligner.dispatch_padded(tT, tQ, tl.astype(np.int32),
+                                                 ql.astype(np.int32), b)
+                handles.append((b, h, chunk))
+        with self._stats_lock:
+            if self._stats is not None:
+                self._stats["disp_cpu"] += time.thread_time() - cpu0
+        self.inflight.put((pending, (job_req, job_ji), handles, overflow,
+                           resp_put))
+
+    # -- downloader ----------------------------------------------------
+    def run_download(self):
+        """Downloader loop.  At the stop sentinel it writes the stats line
+        to ``$VACMAP_TPU_FILL_STATS`` when that is set: calls, jobs,
+        fetch time, escalations, the clients' routes and the fill
+        kernels' launches since the service became ready."""
+        stats_path = os.environ.get("VACMAP_TPU_FILL_STATS")
+        t_start = time.monotonic()
+        while True:
+            item = self.inflight.get()
+            if item is None:
+                self.inflight.put(None)  # release any other downloader
+                with self._stats_lock:
+                    st, self._stats = self._stats, None
+                if stats_path and st is not None:
+                    self._write_stats(stats_path, st, t_start)
+                break
+            pending, (job_req, job_ji), handles, overflow, resp_put = item
+            if self.error is None:
+                try:
+                    self._download_item(pending, job_req, job_ji, handles,
+                                        overflow, resp_put)
+                    continue
+                except Exception as err:  # noqa: BLE001  reported to clients
+                    traceback.print_exc(limit=6, file=sys.stderr)
+                    self.fail(_error_text(err))
+            self._answer_error(pending, resp_put)
+
+    def _write_stats(self, path, st, t_start):
+        """jobs: sent to a kernel; escal: of those, returned to the
+        host; host_slot: sent to the service but routed to the host
+        (code 4, oversize, empty side); submitted / offloaded / capped /
+        governed / not_ready: the clients' routes (see SUBMITTED);
+        device_share: jobs the kernels answered over jobs submitted."""
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        dt = max(time.monotonic() - t_start, 1e-9)
+        now = launch_counts()
+        launches = ",".join(f"{k}:{now[k] - self._launch0[k]}" for k in now)
+        sub, off, capped, governed = self.routes[:]
+        with open(path, "w") as fh:
+            fh.write(
+                "calls=%d reqs=%d jobs=%d jobs/call=%.1f fetch_ms/call=%.1f "
+                "wall_s=%.1f cpu_s=%.1f disp_cpu=%.1f dl_cpu=%.1f escal=%d "
+                "host_slot=%d submitted=%d offloaded=%d capped=%d "
+                "governed=%d not_ready=%d device_share=%.4f launches=%s\n"
+                % (st["calls"], st["reqs"], st["jobs"],
+                   st["jobs"] / max(st["calls"], 1),
+                   st["fetch_s"] * 1e3 / max(st["calls"], 1), dt,
+                   ru.ru_utime + ru.ru_stime, st["disp_cpu"], st["dl_cpu"],
+                   st["escal"], st["host_slot"], sub, off, capped, governed,
+                   sub - off - capped - governed,
+                   (st["jobs"] - st["escal"]) / max(sub, 1), launches))
+
+    def _download_item(self, pending, job_req, job_ji, handles, overflow,
+                       resp_put):
+        cpu0 = time.thread_time()
+        # per-request routing tables: req -> {(bucket, chunk#): slot}
+        # (chunk# keys stop two same-bucket chunks from merging)
+        per_req = [dict() for _ in pending]
+        host_extra = {}
+        n_escal = n_jobs = 0
+        fetch_s = 0.0
+
+        def req_groups(chunk):
+            # chunk rows grouped by requester: [(ri, rows)]
+            rks = job_req[chunk]
+            order = np.argsort(rks, kind="stable")
+            srk = rks[order]
+            cuts = np.flatnonzero(srk[1:] != srk[:-1]) + 1
+            for g in np.split(order, cuts):
+                yield int(rks[g[0]]), g
+
+        for ci, (b, h, chunk) in enumerate(handles):
+            n_jobs += len(chunk)
+            t0 = time.monotonic()
+            res = self.aligner.fetch(h)  # blocks until the copy landed
+            fetch_s += time.monotonic() - t0
+            if res[0] == "rrb":
+                # banded planes + escalation flags: flagged jobs go back
+                # to the requester's host fill path
+                lo, ex, flags = res[1], res[2], res[3]
+                for ri, rows in req_groups(chunk):
+                    fl = flags[rows]
+                    okr = rows[~fl]
+                    if len(okr):
+                        per_req[ri][(b, ci)] = (
+                            "rrB", lo[okr], ex[okr],
+                            job_ji[chunk[okr]].tolist())
+                    bad = rows[fl]
+                    if len(bad):
+                        host_extra.setdefault(ri, []).extend(
+                            job_ji[chunk[bad]].tolist())
+                        n_escal += len(bad)
+            elif res[0] == "rr":
+                lo, ex = res[1], res[2]
+                for ri, rows in req_groups(chunk):
+                    per_req[ri][(b, ci)] = ("rr", lo[rows], ex[rows],
+                                            job_ji[chunk[rows]].tolist())
+            else:
+                packed = res[1]
+                for ri, rows in req_groups(chunk):
+                    per_req[ri][(b, ci)] = ("packed", packed[:, rows],
+                                            job_ji[chunk[rows]].tolist())
+        if len(overflow):
+            for ri, rows in req_groups(overflow):
+                host_extra.setdefault(ri, []).extend(
+                    job_ji[overflow[rows]].tolist())
+        for ri, extra in host_extra.items():
+            per_req[ri][(-1, 0)] = ("host", extra)
+        with self._stats_lock:
+            if self._stats is not None:
+                self._stats["calls"] += len(handles)
+                self._stats["jobs"] += n_jobs
+                self._stats["reqs"] += len(pending)
+                self._stats["fetch_s"] += fetch_s
+                self._stats["escal"] += n_escal
+                self._stats["host_slot"] += len(overflow)
+                self._stats["dl_cpu"] += time.thread_time() - cpu0
+        for ri, (client_id, req_id, *_rest) in enumerate(pending):
+            resp_put(client_id, (req_id, per_req[ri]))
+
+
+# ---------------------------------------------------------------------------
+# client-side decode (shared by both transports)
+# ---------------------------------------------------------------------------
+
+
+def decode_response(msg, pairs, eqx: bool):
+    """Tagged per-chunk slots ({key: ("rr" | "rrB", lo, ex, jidxs) |
+    ("packed", cols, jidxs) | ("host", jidxs) | ("error", text)}) + the
+    original pairs -> AlignResult list (host-aligning the jobs the
+    service routed to the host).  An error slot raises
+    DeviceKernelError."""
+    for slot in msg.values():
+        if slot[0] == "error":
+            raise DeviceKernelError(f"device fill service: {slot[1]}")
+    results: List[Optional[AlignResult]] = [None] * len(pairs)
+    for slot in msg.values():
+        if slot[0] == "host":
+            sub = [pairs[ji] for ji in slot[1]]
+            for ji, r in zip(slot[1], _host_global_batch(sub, eqx)):
+                results[ji] = r
+            continue
+        if slot[0] in ("rr", "rrB"):  # rrB: banded, escalations removed
+            _, lo, ex, jidxs = slot
+            sub = [pairs[ji] for ji in jidxs]
+            decoded = native.decode_rowruns(lo, ex, sub, eqx=eqx)
+            if decoded is None:  # native lib unavailable
+                t_len = np.array([len(t) for t, _ in sub], np.int64)
+                q_len = np.array([len(q) for _, q in sub], np.int64)
+                packed = rowruns_to_packed(lo, ex, t_len, q_len, lo.shape[1])
+                decoded = _decode_packed_python(packed, sub, eqx=eqx)
+        else:
+            _, packed, jidxs = slot
+            sub = [pairs[ji] for ji in jidxs]
+            decoded = native.decode_tb_ops(packed, sub, eqx=eqx)
+            if decoded is None:
+                decoded = _decode_packed_python(packed, sub, eqx=eqx)
+        for col, ji in enumerate(jidxs):
+            t, q = pairs[ji]
+            results[ji] = AlignResult(native.ops_to_cigar(decoded[col]), False,
+                                      len(q), len(t), 0, 0, 0)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# in-process transport (batched executor)
+# ---------------------------------------------------------------------------
+
+
+class AsyncFillAligner:
+    """In-process pipelined fill aligner: the blocking ``align_batch(pairs,
+    eqx)`` of an aggregating aligner, plus ``submit``/``wait``, with
+    dispatch N+1 overlapping download N."""
+
+    # refine_chain ships the divergence window-bound batch here too
+    wants_window_jobs = True
+
+    def __init__(self, aligner, buckets=DEFAULT_BUCKETS,
+                 max_wait_ms=MAX_WAIT_MS, prewarm: bool = True,
+                 force: bool = True):
+        self.core = _ServerCore(aligner, buckets=buckets,
+                                max_wait_ms=max_wait_ms, force=force)
+        self.req_q: "queue.Queue" = queue.Queue()
+        self._events: Dict[int, dict] = {}
+        self._lock = threading.Lock()
+        self._next_id = 0
+        self._pending_n = 0  # in-flight jobs (backpressure, under _lock)
+        # submits route to host fills until the dispatcher thread has
+        # warmed the device, and for good after a calibrated no-go
+        self.ready = threading.Event()
+        self.failed = False
+        self._do_prewarm = prewarm
+        self._threads = [
+            threading.Thread(target=self._dispatch_loop, daemon=True),
+        ] + [
+            threading.Thread(target=self.core.run_download, daemon=True)
+            for _ in range(N_DOWNLOADERS)
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _dispatch_loop(self):
+        try:
+            if self._do_prewarm:
+                self.core.prewarm()
+            if not self.core.competitive:
+                self.failed = True  # calibrated no-go: stay on host fills
+        except Exception as err:  # noqa: BLE001  raised by every submit
+            traceback.print_exc(limit=6, file=sys.stderr)
+            self.core.fail(_error_text(err))
+        finally:
+            self.ready.set()
+        self.core.run_dispatch(lambda tmo: self.req_q.get(timeout=tmo),
+                               self._resp_put)
+
+    def _resp_put(self, client_id, resp):
+        req_id, msg = resp
+        with self._lock:
+            box = self._events.pop(req_id, None)
+            if box is not None:
+                self._pending_n -= box["n"]
+        if box is not None:
+            box["msg"] = msg
+            box["event"].set()
+
+    def _check(self):
+        if self.core.error is not None:
+            raise DeviceKernelError(f"device fill service: {self.core.error}")
+
+    # the refine_chain aligner interface
+    def __call__(self, pairs, eqx: bool = False):
+        return self.align_batch(pairs, eqx)
+
+    def align_batch(self, pairs, eqx: bool = False):
+        return self.wait(self.submit(pairs, eqx))
+
+    def accepting(self) -> bool:
+        """Non-reserving saturation peek (see FillClient.accepting)."""
+        if self.failed or not self.ready.is_set():
+            return False
+        return self._pending_n < _ref.MAX_INFLIGHT_JOBS
+
+    def submit(self, pairs, eqx: bool = False):
+        """Enqueue a fill batch; returns a handle for wait().  Before the
+        service is ready, after a calibrated no-go and while the in-flight
+        backlog is at the cap, the handle routes to host fills instead.
+        Raises DeviceKernelError once the device has failed."""
+        self._check()
+        if not pairs:
+            return (None, pairs, eqx)
+        routes = self.core.routes
+        _count(routes, SUBMITTED, len(pairs))
+        if self.failed or not self.ready.is_set():
+            return ("host", pairs, eqx)
+        box = {"event": threading.Event(), "msg": None, "n": len(pairs)}
+        with self._lock:
+            admit = self._pending_n < _ref.MAX_INFLIGHT_JOBS
+            if admit:
+                self._pending_n += len(pairs)
+                req_id = self._next_id
+                self._next_id += 1
+                self._events[req_id] = box
+        _count(routes, OFFLOADED if admit else CAPPED, len(pairs))
+        if not admit:
+            return ("host", pairs, eqx)
+        self.req_q.put((0, req_id, *pack_pairs(pairs)))
+        return (box, pairs, eqx)
+
+    def wait(self, handle, timeout: float = WAIT_S):
+        box, pairs, eqx = handle
+        if box is None:
+            return []
+        if box == "host":
+            return _host_global_batch(pairs, eqx)
+        if not box["event"].wait(timeout=timeout):
+            self._check()
+            raise DeviceKernelError(
+                f"device fill service: no response in {timeout:.0f} s")
+        return decode_response(box["msg"], pairs, eqx)
+
+    def edit_batch(self, pairs):
+        """No device edit-distance kernel: every entry is None (the
+        caller's host ladder)."""
+        return [None] * len(pairs)
+
+    def stop(self, timeout: float = 10.0) -> Optional[str]:
+        """Drain and join the pipeline threads, so none is inside a device
+        call when the process tears CUDA down.  Returns an error message
+        when a thread is still running after ``timeout`` (a device call
+        that does not return), else None."""
+        self.req_q.put(None)
+        deadline = time.monotonic() + timeout
+        for t in self._threads:
+            t.join(timeout=max(deadline - time.monotonic(), 0.0))
+        if any(t.is_alive() for t in self._threads):
+            return f"fill service threads still running {timeout:.0f} s after stop"
+        return None
+
+
+def _make_aligner(buckets, device) -> TorchFillAligner:
+    """The service's device aligner on ``device``."""
+    return TorchFillAligner(buckets=buckets, device=device)
+
+
+def async_fill_aligner(device, buckets=DEFAULT_BUCKETS, force: bool = True,
+                       **kw) -> AsyncFillAligner:
+    """The in-process service on ``device``.  force=False runs the
+    start-up calibration and stays on host fills when the device's
+    best-case rate cannot beat the host's own fill kernels."""
+    return AsyncFillAligner(_make_aligner(buckets, device), buckets=buckets,
+                            force=force, **kw)
+
+
+# ---------------------------------------------------------------------------
+# cross-process transport (fork-worker CLI deployment)
+# ---------------------------------------------------------------------------
+
+
+def _server_main(req_q, resp_qs, buckets, device, ready_evt, status, err_buf,
+                 routes, prewarm: bool, force: bool):
+    """Entry point of the device-owning service process."""
+
+    def report(msg):
+        err_buf.value = msg.encode("utf-8", "replace")[: len(err_buf) - 1]
+        status.value = FAILED
+
+    try:
+        dev = resolve_device(str(device))
+        if dev.type == "cpu":
+            # a forked child must not start the parent's intra-op pool
+            torch.set_num_threads(1)
+        core = _ServerCore(_make_aligner(buckets, dev), buckets=buckets,
+                           force=force, n_clients=len(resp_qs),
+                           on_error=report, routes=routes)
+        if prewarm:
+            core.prewarm()
+    except Exception as err:  # noqa: BLE001  the parent reports it
+        report(_error_text(err))
+        ready_evt.set()
+        raise
+    if not core.competitive:
+        c = core.calib or (0.0, 0.0)
+        log.info("device fill offload declined by calibration: device %.0f "
+                 "jobs/s best-case vs host %.0f jobs/s/core x %d workers "
+                 "(--device-fills on overrides)", c[0], c[1], len(resp_qs))
+        status.value = DECLINED
+        ready_evt.set()
+        return
+    status.value = SERVING
+    ready_evt.set()
+
+    def resp_put(client_id, resp):
+        # stamped with the send time (see FillClient._recv_one)
+        resp_qs[client_id].put((*resp, time.monotonic()))
+
+    dls = [threading.Thread(target=core.run_download, daemon=True)
+           for _ in range(N_DOWNLOADERS)]
+    for dl in dls:
+        dl.start()
+    core.run_dispatch(lambda tmo: req_q.get(timeout=tmo), resp_put)
+    for dl in dls:
+        dl.join()
+    # responses no client will drain any more (a worker that was stopped
+    # after an error) must not hold this process's exit on a full pipe
+    for q in resp_qs:
+        q.cancel_join_thread()
+
+
+def _status_error(status, err_buf) -> Optional[str]:
+    if status.value == FAILED:
+        return err_buf.value.decode("utf-8", "replace") or "unknown error"
+    return None
+
+
+class FillServerHandle:
+    def __init__(self, proc, req_q, resp_qs, ready_evt, status, err_buf,
+                 pending_ctr, lat_sh, routes):
+        self.proc = proc
+        self.req_q = req_q
+        self.resp_qs = resp_qs
+        self.ready_evt = ready_evt
+        self.status = status
+        self.err_buf = err_buf
+        self.pending_ctr = pending_ctr
+        self.lat_sh = lat_sh
+        self.routes = routes
+        self._stopped = False
+
+    def client(self, worker_id: int) -> "FillClient":
+        return FillClient(worker_id, self.req_q, self.resp_qs[worker_id],
+                          ready_evt=self.ready_evt, status=self.status,
+                          err_buf=self.err_buf, pending_ctr=self.pending_ctr,
+                          lat_sh=self.lat_sh, routes=self.routes)
+
+    def wait_ready(self, timeout: float = 900.0) -> bool:
+        """Block until the service is warm; False after a calibrated
+        no-go.  Raises DeviceKernelError when it fails to start."""
+        if not self.ready_evt.wait(timeout=timeout):
+            raise DeviceKernelError(
+                f"fill service did not come up in {timeout:.0f} s")
+        msg = self.error()
+        if msg is not None:
+            raise DeviceKernelError(f"fill service failed to start: {msg}")
+        return self.status.value == SERVING
+
+    def error(self) -> Optional[str]:
+        """The service's device error, or its death while it should be
+        serving; None while all is well."""
+        msg = _status_error(self.status, self.err_buf)
+        if msg is not None:
+            return msg
+        code = self.proc.exitcode
+        if (code is not None and not self._stopped
+                and self.status.value in (STARTING, SERVING)):
+            return f"fill service process exited with code {code}"
+        return None
+
+    def stop(self, timeout: float = 30.0) -> Optional[str]:
+        """Drain and stop the service process; returns ``error()`` as it
+        stood before the stop, or the process's own failure to exit
+        cleanly within ``timeout`` (then it is terminated)."""
+        msg = self.error()
+        self._stopped = True
+        try:
+            if self.status.value == SERVING and self.proc.is_alive():
+                self.req_q.put(None)
+                self.proc.join(timeout=timeout)
+                if msg is None and self.proc.is_alive():
+                    msg = (f"fill service process did not exit within "
+                           f"{timeout:.0f} s of its stop")
+                elif msg is None and self.proc.exitcode != 0:
+                    msg = f"fill service process exited with code {self.proc.exitcode}"
+        finally:
+            if self.proc.is_alive():
+                self.proc.terminate()
+            self.proc.join(timeout=10)
+        return msg
+
+
+def start_fill_server(n_clients: int, device, buckets=DEFAULT_BUCKETS,
+                      prewarm: bool = True, wait_ready: bool = True,
+                      ready_timeout: float = 900.0, force: bool = False):
+    """Fork the device-owning fill server for ``n_clients`` clients on
+    ``device`` ("cuda", "cuda:N" or "cpu"); returns a FillServerHandle, or
+    None after a calibrated no-go when ``wait_ready``.
+
+    Call it BEFORE the mapping workers fork (they inherit the queues),
+    from a process that has not set CUDA up: only the service process
+    touches the device.  With ``wait_ready``, a service that fails to
+    start raises DeviceKernelError here; without it, the clients and
+    ``FillServerHandle.error`` report the failure."""
+    ctx = mp.get_context("fork")
+    req_q = ctx.Queue()
+    resp_qs = [ctx.Queue() for _ in range(n_clients)]
+    ready = ctx.Event()
+    status = ctx.Value("i", STARTING)
+    err_buf = ctx.Array("c", 2048)
+    pending = ctx.Value("l", 0)  # jobs in flight, shared by all clients
+    # shared round-trip EMA (<0 = no data), shared so that it survives
+    # worker fork generations
+    lat_sh = ctx.Value("d", -1.0)
+    routes = ctx.Array("q", 4)  # the clients' route counters
+    proc = ctx.Process(
+        target=_server_main,
+        args=(req_q, resp_qs, buckets, str(device), ready, status, err_buf,
+              routes, prewarm, force),
+        daemon=True,
+    )
+    proc.start()
+    handle = FillServerHandle(proc, req_q, resp_qs, ready, status, err_buf,
+                              pending, lat_sh, routes)
+    if wait_ready:
+        try:
+            serving = handle.wait_ready(ready_timeout)
+        except DeviceKernelError:
+            handle.stop()
+            raise
+        if not serving:
+            handle.stop()
+            return None
+    return handle
+
+
+class FillClient(_ref.FillClient):
+    """Worker-side handle: the reference client (thread-safe
+    ``submit``/``wait``, admission gate with the in-flight cap and the
+    latency governor, cross-read host batches for bounced jobs, responses
+    drained inside ``wait``) on this service's transport.  It differs in
+    four ways: the service's status is checked, and a failed service
+    raises DeviceKernelError; the round trip ends at the service's send;
+    routes are counted in the shared counters; and ``wait`` never
+    recomputes a request sent to the service on the host.  ``edit_batch``
+    (the reference's, with no edit kernel) answers all-None at once."""
+
+    def __init__(self, worker_id: int, req_q, resp_q, ready_evt, status,
+                 err_buf, pending_ctr=None, lat_sh=None, routes=None):
+        super().__init__(worker_id, req_q, resp_q, ready_evt=ready_evt,
+                         pending_ctr=pending_ctr, lat_sh=lat_sh)
+        self._status = status
+        self._err_buf = err_buf
+        self._routes = routes if routes is not None else mp.Array("q", 4)
+
+    def _check(self):
+        msg = _status_error(self._status, self._err_buf)
+        if msg is not None:
+            raise DeviceKernelError(f"device fill service: {msg}")
+
+    def _server_ready(self) -> bool:
+        """Non-blocking: host fills until the service is warm, and for
+        good after a calibrated no-go; raises after a service failure."""
+        self._check()
+        if (not self._ready_cache and self._ready_evt.is_set()
+                and self._status.value == DECLINED):
+            self.failed = True
+        return super()._server_ready()
+
+    def _admit(self, n: int) -> bool:
+        # the governor closes on this estimate; below it (or with no
+        # estimate yet) a refusal is the in-flight cap's
+        lat = self._lat_sh.value if self._lat_sh is not None else -1.0
+        admitted = super()._admit(n)
+        kind = (OFFLOADED if admitted else
+                GOVERNED if lat > _ref.MAX_LAT_S else CAPPED)
+        _count(self._routes, kind, n)
+        return admitted
+
+    def _recv_one(self, poll_s: float) -> bool:
+        """Read and route at most one response message, holding the
+        queue's cross-process lock only while data is available.  True
+        when a message was routed."""
+        q = self.resp_q
+        if not q._rlock.acquire(timeout=poll_s):
+            return False
+        try:
+            if not q._reader.poll(poll_s):
+                return False
+            buf = q._reader.recv_bytes()
+        finally:
+            q._rlock.release()
+        req_id, msg, t_sent = pickle.loads(buf)
+        with self._lock:
+            box = self._events.pop(req_id, None)
+        if box is not None:
+            self._release(box)
+            # the round trip ends when the service sends the response (one
+            # monotonic clock for all processes of this host), not when
+            # this worker drains it: a response drained late, at the pop
+            # of a deferred window, has kept no one waiting
+            lat = t_sent - box["t0"]
+            if self._lat_sh is not None:
+                with self._lat_sh.get_lock():
+                    v = self._lat_sh.value
+                    self._lat_sh.value = lat if v < 0 else 0.7 * v + 0.3 * lat
+            box["msg"] = msg
+            box["event"].set()
+        return True
+
+    def submit(self, pairs, eqx: bool = False):
+        self._check()
+        if pairs:
+            _count(self._routes, SUBMITTED, len(pairs))
+        return super().submit(pairs, eqx)
+
+    def wait(self, handle, timeout: Optional[float] = None):
+        """Resolve a submit.  An error response, a failed service, or no
+        response within ``timeout`` (default WAIT_S) raises
+        DeviceKernelError."""
+        box, req_id, pairs, eqx = handle
+        if box is None:
+            return []
+        if box == "hostq":
+            return self._host_wait(req_id)
+        timeout = WAIT_S if timeout is None else timeout
+        if not self._drain_until(box, timeout):
+            with self._lock:
+                stale = self._events.pop(req_id, None)
+            self._release(stale)
+            self._check()
+            raise DeviceKernelError(
+                f"device fill service: no response in {timeout:.0f} s")
+        return decode_response(box["msg"], pairs, eqx)

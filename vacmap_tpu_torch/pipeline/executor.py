@@ -5,7 +5,8 @@ Reads are processed in batches: host seeding, then the global chain DP
 of the whole batch as one kernel launch per anchor-count bucket, then the
 per-read finish (backtrack, local re-chain, refinement, SAM) on host
 threads.  The finishing reads' local fine/mismatch DPs merge into device
-chain launches and their base-level fills into device fill launches.
+chain launches, and their base-level fills go to the in-process fill
+service (``AsyncFillAligner``: dispatch N+1 overlaps download N).
 
 Identical results to ``Mapper.map_read``.  Repeat-dense reads (anchors/bp
 > 5), reads over the largest bucket and reads whose anchors reach 2^31
@@ -29,9 +30,8 @@ from vacmap_tpu.pipeline.sam import records_to_sam
 
 from ..device import DeviceKernelError
 from ..ops.chain import chain_results, device_chainable
-from ..parallel.device_service import (
-    TorchAggregatingChainBackend, device_fill_aligner,
-)
+from ..parallel.device_service import TorchAggregatingChainBackend
+from ..parallel.fill_service import async_fill_aligner
 
 # anchor-count buckets of the global chain launches (reference semantics)
 N_BUCKETS = (512, 2048, 8192)
@@ -46,8 +46,20 @@ class TorchBatchExecutor:
         self.max_device_batch = max_device_batch
         if device_local_dp and mapper.chain_backend is None:
             mapper.chain_backend = TorchAggregatingChainBackend(self.device)
+        self._owned_fill_aligner = None
         if device_fills and mapper.global_aligner is None:
-            mapper.global_aligner = device_fill_aligner(self.device)
+            mapper.global_aligner = async_fill_aligner(self.device)
+            self._owned_fill_aligner = mapper.global_aligner
+
+    def close(self):
+        """Stop the in-process fill service this executor started, so its
+        threads are not inside a device call when the process exits.
+        Raises DeviceKernelError when the service does not stop."""
+        if self._owned_fill_aligner is not None:
+            msg = self._owned_fill_aligner.stop()
+            self._owned_fill_aligner = None
+            if msg is not None:
+                raise DeviceKernelError(msg)
 
     # ------------------------------------------------------------------
     def _device_chain(self, arrays: List[np.ndarray], variant: str,
