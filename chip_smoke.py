@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the vacmap_tpu_torch mode-H paths once on one CUDA card.
+"""Drive the vacmap_tpu_torch paths (mode H and asm) once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,21 +7,28 @@ Phases (each prints one result line; any failure exits non-zero before
 the final line):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds csrc/*.cu into build/vacmap_tpu_torch/ (one
-     compiler process per source, all started together);
+     compiler process per source, all started together), and g++ builds
+     the package's host C++ library beside them;
   3. data: the benchmark's 100 Mb genome (tandem arrays, a segmental
      duplication; seed 20260816), its first 256 reads of 20 kb at 5%
      ONT-like error (1/3 plain, 1/3 mid-read inversion, 1/3 3 kb
      deletion) and 16 more with a 120-250 bp deletion;
   4. kernels: every kernel against its plain PyTorch version on the card
      at main-path shapes (chain S within 1e-3 and P agreement >= 0.999;
-     fill planes and scan op streams byte-identical), then 2050
+     fill planes and scan op streams byte-identical); the warm-start
+     chain kernel at B = 1 with an unsorted frontier (frozen rows exact)
+     at N = 4096 (phase 6's 2 Mb contig gives it 100 kb blocks of about
+     2,800 anchors, co-diagonal seeds merged, and a frontier of a few),
+     cold (no frontier) at N = 16,384 (phase 6's 480 kb contig), and at
+     N = 32,768 (a block of repeats or of diverged sequence, whose seeds
+     do not merge); then 2050
      realistic fill jobs against the host aligner's CIGARs, through
      TorchFillAligner and through the in-process fill service
      (AsyncFillAligner) on its default route and on the scan route
      (VACMAP_TPU_FILL_SCAN=1);
   5. end to end: the port's executor (--backend jax) maps the reads in
      this process; then three CLI processes of their own, each timed
-     from its start to its exit: the vacmap_tpu host path (4 fork
+     from its start to its exit: the port's host path (4 fork
      workers, host fills), the port's executor, and the port's default
      deployment (-t 4 fork workers sharing one CUDA fill service
      process, --device-fills on, service stats from
@@ -30,6 +37,15 @@ the final line):
      deployments, the service must have served jobs, and every kernel of
      a path must have launched on it.  Each deployment's service stats
      line gives the share of fill jobs the kernels answered.
+  6. asm: one contig of 2 Mb cut from the genome with 0.3% divergence,
+     a 2.5 kb deletion and a 5 kb inversion (the streaming chain: about
+     20 round-1 blocks of 100 kb) and one of 480 kb with 6% divergence
+     (a diverged haplotype or a related species; the per-read path,
+     more than 8192 anchors after co-diagonal seeds merge), mapped by `-mode asm --backend jax --device
+     cuda` and by the port's host path `-mode asm --backend numpy`, each
+     a process of its own.  The SAM records must be equal, every round-1
+     block must have been chained by the warm kernel (none declined for
+     size or coordinates), and the kernel must have launched.
 Launch counts are set to 0 just before each path and read just after.
 The fill kernels' counts of both deployments come from their service's
 stats line, which counts from the moment the service is ready, so the
@@ -37,7 +53,16 @@ prewarm launches are not in them.  Kernel times
 are device time per call (CUDA events around calls queued behind a GPU
 sleep, so no host work is in the window); "wrapper" is the stream time
 per call of back-to-back wrapper calls, host work included, and "plain"
-the stream time of one call of the plain PyTorch version.  The line
+the stream time of one call of the plain PyTorch version.  "bound" is
+the least time the card could take for the same work: the larger of the
+operations these inputs need over 67 TFLOP/s (the H100's float32 rate
+outside the tensor cores; integer operations are counted at that rate
+too) and the bytes (each input read once, each output written once) over
+3.35 TB/s.  A chain DP's operations are its candidate pairs (j < n_valid
+with an earlier barrier than i, counted from the inputs) at 80 operations
+a pair; a fill's are its cells (t_len x q_len, or t_len x 128 band lanes)
+at 30 operations a cell.  No single PyTorch call computes the chain DP
+or the affine fill with its traceback, so "library" is null.  The line
 before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
 CUDA card is visible or the package is not beside this script.
@@ -64,6 +89,12 @@ CHAIN_ATOL = 1e-3
 CHAIN_P_MIN = 0.999
 E2E_AGREE_MIN = 0.99
 _BASES = np.frombuffer(b"ACGT", np.uint8)
+ASM_BIG, ASM_DIV = 2_000_000, 0.003
+ASM_SMALL, ASM_SMALL_DIV = 480_000, 0.06
+PEAK_OPS = 67e12      # H100 SXM, float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
+OPS_PER_PAIR = 80     # one pair score of the chain DP (csrc/chain_pair.cuh)
+OPS_PER_CELL = 30     # one cell of the two-piece affine fill
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
 
@@ -231,6 +262,62 @@ def fill_pairs(rng, gcodes, n, lo, hi, err=0.05, big_indel=0.0,
     return pairs
 
 
+def bound(ops, nbytes):
+    """(least ms the card could take, which resource sets it)."""
+    t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def chain_pairs(anchors, n_valid, n_warm, local):
+    """Candidate pairs a chain DP needs for these inputs: for every
+    scored row i, the rows j < n_valid with barrier_j < barrier_i."""
+    total = 0
+    for b in range(len(n_valid)):
+        a = anchors[b, : n_valid[b]].astype(np.int64)
+        bar = a[:, 0] + (a[:, 3] if local else 0)
+        total += int(np.searchsorted(np.sort(bar), bar[n_warm[b]:],
+                                     side="left").sum())
+    return total
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def asm_contigs(rng, gcodes):
+    """Two assembly contigs cut from the genome: 2 Mb with 0.3%
+    divergence, a 2.5 kb deletion and a 5 kb inversion; 480 kb with 6%
+    divergence, which leaves more than 8192 anchors (at assembly-like
+    divergence co-diagonal seeds merge into a few thousand)."""
+    st = int(rng.integers(0, len(gcodes) - ASM_BIG - 10_000))
+    big = gcodes[st : st + ASM_BIG + 2500].copy()
+    big = np.concatenate([big[:700_000], big[702_500:]])
+    big[1_300_000:1_305_000] = revcomp_codes(big[1_300_000:1_305_000])
+    st2 = int(rng.integers(0, len(gcodes) - ASM_SMALL))
+    small = gcodes[st2 : st2 + ASM_SMALL]
+    return [("asm_contig_2mb", mutate_codes(rng, big, ASM_DIV)),
+            ("asm_contig_480kb", mutate_codes(rng, small, ASM_SMALL_DIV))]
+
+
+def asm_stats(stderr):
+    """The asm CLI's chain device stats line as {key: number}."""
+    for line in stderr.splitlines():
+        if "asm chain device stats:" in line:
+            kv = line.split("asm chain device stats:", 1)[1].split()
+            return {k: float(v) for k, v in (x.split("=", 1) for x in kv)}
+    return None
+
+
+def mapping_seconds(stderr):
+    """The seconds a CLI process logged for its mapping loop alone (its
+    "Done:" line: after start-up and the index load)."""
+    for line in stderr.splitlines():
+        if " Done: " in line and " in " in line:
+            return float(line.rsplit(" in ", 1)[1].split("s", 1)[0])
+    return float("nan")
+
+
 def padded(pairs, N):
     B = len(pairs)
     tT = np.full((B, N), 4, np.uint8)
@@ -316,13 +403,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
     try:
-        from vacmap_tpu_torch import _build, cli
+        from vacmap_tpu_torch import _build, cli, native
         from vacmap_tpu_torch.ops import affine_fill as af
         from vacmap_tpu_torch.ops import chain
         from vacmap_tpu_torch.parallel import fill_service
     except ImportError as err:
         fail(f"vacmap_tpu_torch is not importable beside this script: {err}")
     kernels = {"chain_dp": chain.chain_scores_batch,
+               "chain_dp_large": chain.chain_scores_batch_warm,
                "fill_full": af.fill_rowruns,
                "fill_banded": af.fill_rowruns_banded,
                "fill_scan": af.fill_traceback}
@@ -361,6 +449,14 @@ def main() -> int:
     say(f"build: ok {so} in {time.perf_counter() - t0:.1f} s")
     for ln in ptxas:
         say(f"  {ln}")
+    # the host C++ library (asm streaming has no numpy fallback for it)
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("the package's native host library did not build (g++)")
+    if not os.path.samefile(os.path.dirname(native._SO), _build.BUILD_DIR):
+        fail(f"the native host library is not under the build directory: "
+             f"{native._SO}")
+    say(f"build: ok {native._SO} in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. data --------------------------------------------------------
     t0 = time.perf_counter()
@@ -371,7 +467,8 @@ def main() -> int:
 
     # ---- 4. kernel phases -----------------------------------------------
     rng = np.random.default_rng(SEED + 1)
-    args0 = cli.parser().parse_args(["-ref", "-", "-read", "-", "-mode", "H"])
+    args0 = cli.build_parser().parse_args(
+        ["-ref", "-", "-read", "-", "-mode", "H"])
     cfg0 = cli.config_from_args(args0)
     skip_g, maxdiff_g, maxgap_g = cfg0.chain_params_global()
     skip_l, maxdiff_l, maxgap_l = cfg0.chain_params_local()
@@ -400,13 +497,74 @@ def main() -> int:
         err = float(np.abs(S - S0)[valid].max())
         agree = float((P == P0)[valid].mean())
         ok = err <= CHAIN_ATOL and agree >= CHAIN_P_MIN
+        pairs = chain_pairs(arrays[0], nv, np.zeros_like(nv), local)
+        b_ms, b_by = bound(pairs * OPS_PER_PAIR,
+                           nbytes(*x, torch.as_tensor(S), torch.as_tensor(P)))
         say(f"kernel chain_dp {variant} B={B} N={N}: max|dS|={err:.3g} "
             f"P agreement={agree:.6f} kernel {ms:.3f} ms (wrapper "
-            f"{wrap_ms:.3f} ms) plain {plain_ms:.1f} ms [{card}] "
-            f"{'ok' if ok else 'MISMATCH'}")
+            f"{wrap_ms:.3f} ms) plain {plain_ms:.1f} ms bound {b_ms:.4f} ms "
+            f"({b_by}, {pairs} pairs) [{card}] {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"chain_dp {variant} B={B} N={N} disagrees with its plain version")
-        return err, ms, wrap_ms, plain_ms
+        return err, ms, wrap_ms, plain_ms, b_ms, b_by
+
+    def warm_phase(n, n_warm):
+        """The tiled kernel at B = 1, global_nocov (the asm round-1 block):
+        n barrier-sorted anchors behind a frontier of n_warm anchors in
+        score order, with rebased scores and negative predecessor codes;
+        n_warm = 0 is the cold DP of a contig under 500 kb, launched
+        through chain_scores_batch and held to chain_scores_batch_ref."""
+        a = sv_anchors(rng, n, False)
+        a[:, 0] += 5000
+        f = a[rng.permutation(n)[:n_warm]].copy()
+        f[:, 0] -= rng.integers(100, 4000, n_warm)
+        linked = np.concatenate([f, a]) if n_warm else a
+        arrays = chain.prepare_batch([linked], "global_nocov", skip_g, maxdiff_g)
+        N = arrays[0].shape[1]
+        w_S = np.zeros((1, N), np.float32)
+        w_P = np.zeros((1, N), np.int32)
+        w_S[0, :n_warm] = np.sort(1000.0 - rng.random(n_warm) * 96.0)
+        w_P[0, :n_warm] = -rng.integers(0, 30000, n_warm) - 2
+        nw = np.array([n_warm], np.int32)
+        kw = dict(kmersize=15, maxdiff=maxdiff_g, maxgap=1000,
+                  skipcost=skip_g, variant="global_nocov")
+        x = chain.to_device(dev, *arrays, w_S, w_P, nw)
+        if n_warm:
+            launch = lambda: chain.chain_scores_batch_warm(*x, **kw)  # noqa: E731
+            plain = lambda: chain.chain_scores_batch_warm_ref(*x, **kw)  # noqa: E731
+        else:
+            # cold: chain_scores_batch goes to the tiled kernel above MAX_N
+            launch = lambda: chain.chain_scores_batch(*x[:4], **kw)  # noqa: E731
+            plain = lambda: chain.chain_scores_batch_ref(*x[:4], **kw)  # noqa: E731
+        launch()  # warm-up
+        wrap_ms, (S, P) = wall_ms(torch, launch, 5)
+        ms = device_ms(torch, launch, 3)
+        plain_ms, (S0, P0) = wall_ms(torch, plain, 1)
+        S, P = S.cpu().numpy()[0], P.cpu().numpy()[0]
+        S0, P0 = S0.cpu().numpy()[0], P0.cpu().numpy()[0]
+        nv = len(linked)
+        scored = slice(n_warm, nv)
+        err = float(np.abs(S - S0)[scored].max())
+        agree = float((P == P0)[scored].mean())
+        frozen_ok = (np.array_equal(S[:n_warm], w_S[0, :n_warm])
+                     and np.array_equal(P[:n_warm], w_P[0, :n_warm])
+                     and np.array_equal(S[nv:], w_S[0, nv:])
+                     and bool((P[nv:] == -1).all()))
+        linked_in = int(((P[scored] >= 0) & (P[scored] < n_warm)).sum())
+        ok = err <= CHAIN_ATOL and agree >= CHAIN_P_MIN and frozen_ok
+        pairs = chain_pairs(arrays[0], arrays[1], nw, False)
+        b_ms, b_by = bound(pairs * OPS_PER_PAIR,
+                           nbytes(*x, torch.as_tensor(S), torch.as_tensor(P)))
+        say(f"kernel chain_dp_large global_nocov B=1 N={N} n={nv} "
+            f"n_warm={n_warm}: max|dS|={err:.3g} P agreement={agree:.6f} "
+            f"frozen rows and rows past n_valid exact={frozen_ok} rows linked "
+            f"into the frontier={linked_in} kernel {ms:.3f} ms (wrapper "
+            f"{wrap_ms:.3f} ms) plain {plain_ms:.1f} ms bound {b_ms:.4f} ms "
+            f"({b_by}, {pairs} pairs) [{card}] {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"chain_dp_large N={N} n_warm={n_warm} disagrees with its "
+                 f"plain version")
+        return err, ms, wrap_ms, plain_ms, b_ms, b_by
 
     try:
         res = [chain_phase("global", 16, 8192), chain_phase("global", 64, 2048),
@@ -416,11 +574,26 @@ def main() -> int:
     except Exception as err:  # noqa: BLE001
         fail(f"chain_dp phase raised: {err!r}")
     def summarize(res):
-        # errors over every phase; times of the first (largest) shape
+        # errors over every phase; times and bound of the first shape; no
+        # single PyTorch call computes any of these functions
         return dict(max_abs_err=max(r[0] for r in res), ms=res[0][1],
-                    wrapper_ms=res[0][2], plain_ms=res[0][3])
+                    wrapper_ms=res[0][2], plain_ms=res[0][3],
+                    bound_ms=res[0][4], bound_by=res[0][5], library_ms=None)
 
     summary["chain_dp"] = summarize(res)
+    try:
+        # the asm phase's shapes first: a round-1 block of the 2 Mb contig
+        # (2,800 anchors behind a frontier of 4, N = 4096) and the cold DP
+        # of the 480 kb contig (9,900 anchors, N = 16,384); then a block
+        # whose seeds do not merge (18,000 anchors behind a 300-anchor
+        # frontier, N = 32,768)
+        res = [warm_phase(2_800, 4), warm_phase(9_900, 0),
+               warm_phase(18_000, 300)]
+    except SystemExit:
+        raise
+    except Exception as err:  # noqa: BLE001
+        fail(f"chain_dp_large phase raised: {err!r}")
+    summary["chain_dp_large"] = summarize(res)
 
     def fill_phase(name, wrapper, ref, N, pairs, banded):
         tT, tQ, lens = padded(pairs, N)
@@ -438,13 +611,17 @@ def main() -> int:
         extra = ""
         if banded:
             extra = f" escalated={int(((want[:, N] & 0x80) != 0).sum())}"
+        cells = int((lens[:, 0].astype(np.int64)
+                     * (af.BAND_W if banded else lens[:, 1])).sum())
+        b_ms, b_by = bound(cells * OPS_PER_CELL,
+                           nbytes(*x, torch.as_tensor(got)))
         say(f"kernel {name} B={len(pairs)} N={N}: planes "
             f"{'byte-identical' if err == 0 else 'DIFFER'}{extra} kernel "
             f"{ms:.3f} ms (wrapper {wrap_ms:.3f} ms) plain {plain_ms:.1f} ms "
-            f"[{card}]")
+            f"bound {b_ms:.4f} ms ({b_by}, {cells} cells) [{card}]")
         if err:
             fail(f"{name} N={N} planes differ from its plain version")
-        return err, ms, wrap_ms, plain_ms
+        return err, ms, wrap_ms, plain_ms, b_ms, b_by
 
     def scan_phase(N, pairs):
         tT, tQ, lens = padded(pairs, N)
@@ -456,12 +633,16 @@ def main() -> int:
         plain_ms, want = wall_ms(torch, lambda: af.fill_traceback_ref(*x), 1)
         got, want = got.cpu().numpy(), want.cpu().numpy()
         err = int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max())
+        cells = int((lens[:, 0].astype(np.int64) * lens[:, 1]).sum())
+        b_ms, b_by = bound(cells * OPS_PER_CELL,
+                           nbytes(*x, torch.as_tensor(got)))
         say(f"kernel fill_scan B={len(pairs)} N={N}: packed op streams "
             f"{'byte-identical' if err == 0 else 'DIFFER'} kernel {ms:.3f} ms "
-            f"(wrapper {wrap_ms:.3f} ms) plain {plain_ms:.1f} ms [{card}]")
+            f"(wrapper {wrap_ms:.3f} ms) plain {plain_ms:.1f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}, {cells} cells) [{card}]")
         if err:
             fail(f"fill_scan N={N} op streams differ from its plain version")
-        return err, ms, wrap_ms, plain_ms
+        return err, ms, wrap_ms, plain_ms, b_ms, b_by
 
     try:
         res = []
@@ -575,8 +756,8 @@ def main() -> int:
         env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + (
             os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
         runs = {
-            "host": ["-m", "vacmap_tpu.cli", *common, "--backend", "numpy",
-                     "--device-fills", "off", "-o", out["host"]],
+            "host": ["-m", "vacmap_tpu_torch.cli", *common, "--backend",
+                     "numpy", "--device-fills", "off", "-o", out["host"]],
             "executor_timed": ["-m", "vacmap_tpu_torch.cli", *common,
                                "--backend", "jax", "--device", "cuda", "-o",
                                out["executor_timed"]],
@@ -605,6 +786,31 @@ def main() -> int:
                 fail(f"the {path}'s fill service wrote no stats line: {err!r}")
         path_launches["executor"]["chain_dp"] = chain_launches
         recs = {k: sam_records(v) for k, v in out.items()}
+
+        # ---- 6. asm: two contigs, device chain DPs against the host path
+        contigs = asm_contigs(np.random.default_rng(SEED + 2), gcodes)
+        ctg = os.path.join(wd, "contigs.fa")
+        write_fasta(ctg, contigs)
+        asm_out = {k: os.path.join(wd, f"asm_{k}.sam") for k in ("host", "cuda")}
+        asm_common = ["-m", "vacmap_tpu_torch.cli", "-ref", ref, "-read", ctg,
+                      "-mode", "asm"]
+        asm_runs = {
+            "host": [*asm_common, "--backend", "numpy", "-o", asm_out["host"]],
+            "cuda": [*asm_common, "--backend", "jax", "--device", "cuda",
+                     "-o", asm_out["cuda"]],
+        }
+        asm_secs, asm_err = {}, {}
+        for name, argv in asm_runs.items():
+            asm_secs[name], p = cli_process(argv, env)
+            if p.returncode != 0:
+                fail(f"asm {name} CLI process exited {p.returncode}: "
+                     f"{p.stderr[-3000:]}")
+            asm_err[name] = p.stderr
+        asm_recs = {k: sam_records(v) for k, v in asm_out.items()}
+        astats = asm_stats(asm_err["cuda"])
+        if astats is None:
+            fail("the asm CLI printed no chain device stats line: "
+                 + asm_err["cuda"][-2000:])
 
     names = [n for n, _ in reads]
     host_recs = recs["host"]
@@ -656,12 +862,47 @@ def main() -> int:
             fail(f"{path}: only {aligned}/{len(names)} reads aligned")
         if agree < E2E_AGREE_MIN:
             fail(f"{path}: record agreement {agree:.4f} < {E2E_AGREE_MIN}")
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    contig_bases = sum(len(c) for _, c in contigs)
+    round1 = int(astats["stream_calls"] - astats["declined_variant"])
+    say("asm chain device stats: "
+        + " ".join(f"{k}={v:g}" for k, v in astats.items()) + f" [{card}]")
+    asm_same = [n for n, _ in contigs
+                if asm_recs["cuda"].get(n) == asm_recs["host"].get(n)]
+    say(f"asm: {len(contigs)} contigs, {contig_bases} bp; records equal to "
+        f"the port's host path for {len(asm_same)}/{len(contigs)} contigs "
+        f"({sum(len(v) for v in asm_recs['host'].values())} host records); "
+        f"round-1 blocks chained by the kernel {int(astats['stream_engaged'])}/"
+        f"{round1} ({int(astats['stream_rows'])} anchors in all, frontier "
+        f"included, {int(astats['stream_max_rows'])} in the largest block); device {asm_secs['cuda']:.3f} s "
+        f"({contig_bases / asm_secs['cuda'] / 1e6:.4f} Mbp/s; mapping alone "
+        f"{mapping_seconds(asm_err['cuda']):.1f} s, stream chain device calls "
+        f"{astats['stream_device_s']:.3f} s of it), host path "
+        f"{asm_secs['host']:.3f} s ({contig_bases / asm_secs['host'] / 1e6:.4f} "
+        f"Mbp/s; mapping alone {mapping_seconds(asm_err['host']):.1f} s), one "
+        f"CLI process each, start to exit [{card}]")
+    path_launches["asm"] = {"chain_dp_large": int(astats["warm_launches"]),
+                            "chain_dp": int(astats["chain_launches"])}
+    for n, _ in contigs:
+        if not any(not int(r[1]) & 4 for r in asm_recs["host"].get(n, [])):
+            fail(f"asm: the host path aligned no record of {n}")
+    if len(asm_same) != len(contigs):
+        fail(f"asm: records differ from the port's host path: "
+             f"{ {n: (asm_recs['cuda'].get(n), asm_recs['host'].get(n)) for n, _ in contigs if n not in asm_same} }"[:3000])
+    if (astats["stream_engaged"] != round1 or round1 < ASM_BIG // 100_000
+            or astats["declined_size"] or astats["declined_coords"]):
+        fail(f"asm: not every round-1 block was chained by the kernel: {astats}")
+    # every block is one launch, and the 480 kb contig's cold DP one more
+    if astats["warm_launches"] < round1 + 1:
+        fail(f"asm: the warm kernel launched {astats['warm_launches']} times for "
+             f"{round1} blocks and one contig under 500 kb")
+    if "jax" in sys.modules or "vacmap_tpu" in sys.modules:
+        fail("jax or the JAX package was imported")
 
     replaces = {
         "chain_dp": ("vacmap_tpu_torch/csrc/chain_dp.cu",
                      "vacmap_tpu/ops/chain_jax.py:147"),
+        "chain_dp_large": ("vacmap_tpu_torch/csrc/chain_dp_large.cu",
+                           "vacmap_tpu/ops/chain_jax.py:247"),
         "fill_full": ("vacmap_tpu_torch/csrc/fill_full.cu",
                       "vacmap_tpu/ops/affine_pallas.py:172"),
         "fill_banded": ("vacmap_tpu_torch/csrc/fill_banded.cu",
@@ -671,7 +912,8 @@ def main() -> int:
     }
     lines = []
     for k, (src, rep) in replaces.items():
-        by_path = {p: n[k] for p, n in path_launches.items() if n.get(k)}
+        by_path = {p: n[k] for p, n in path_launches.items()
+                   if n.get(k, 0) > 0}
         if not by_path:
             fail(f"{k} never launched on any path: {path_launches}")
         lines.append(dict(name=k, route="cuda", source=src, replaces=rep,

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes on the vacmap_tpu_torch mode-H paths, on one CUDA card.
+"""Where the time goes on the vacmap_tpu_torch paths (mode H and asm), on one CUDA card.
 
     python3 profile_port.py [--runs 3]
 
@@ -7,7 +7,7 @@ On chip_smoke.py's corpus (the 100 Mb benchmark genome and its 272 reads
 of 20 kb), after building the index once:
   1. throughput: three CLIs, each run as a process of its own and timed
      from its start to its exit, in turns for --runs rounds (the order
-     reversed every other round): the vacmap_tpu host path (--backend
+     reversed every other round): the port's host path (--backend
      numpy --device-fills off), the port's executor (--backend jax) and
      the port's default deployment (-t 4 fork workers, one CUDA fill
      service process, --device-fills on, its service stats line); and
@@ -17,7 +17,12 @@ of 20 kb), after building the index once:
   2. breakdown: one more executor run in this process under
      torch.profiler with the stage trace on (--debug): device time by
      kernel and copy, the device's busy share of that run's wall time,
-     and the host stage spans summed over the finishing threads.
+     and the host stage spans summed over the finishing threads;
+  3. asm: chip_smoke.py's two contigs (2 Mb streaming, 480 kb per call)
+     mapped by `-mode asm` as processes of their own for --runs rounds,
+     host path and `--backend jax --device cuda` in turns, then once in
+     this process under torch.profiler: device time of the tiled chain
+     kernel's scan and finish parts and of the copies.
 Every result line carries the card's name and power limit.
 """
 
@@ -29,6 +34,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 import chip_smoke as cs
 
@@ -59,8 +66,7 @@ def main() -> int:
         cs.fail("torch.cuda.is_available() is false: no CUDA card")
     from torch.profiler import ProfilerActivity, profile
 
-    from vacmap_tpu import trace
-    from vacmap_tpu_torch import _build, cli
+    from vacmap_tpu_torch import _build, cli, trace
 
     card = subprocess.run(cs.SMI_QUERY, capture_output=True, text=True,
                           timeout=60).stdout.strip()
@@ -80,7 +86,7 @@ def main() -> int:
         cli.load_or_build_index(ref, 15, 10, True)
         common = ["-ref", ref, "-read", rds, "-mode", "H", "--force"]
         sides = {
-            "host": ["-m", "vacmap_tpu.cli", *common, "--backend", "numpy",
+            "host": ["-m", "vacmap_tpu_torch.cli", *common, "--backend", "numpy",
                      "--device-fills", "off"],
             "executor": ["-m", "vacmap_tpu_torch.cli", *common, "--backend",
                          "jax", "--device", "cuda"],
@@ -91,7 +97,7 @@ def main() -> int:
             "torch import": "import torch",
             "port": "import torch; torch.zeros(1, device='cuda'); "
                     "from vacmap_tpu_torch import _build, cli; _build.library()",
-            "host": "import vacmap_tpu.cli",
+            "host": "import vacmap_tpu_torch.cli",
         }
         for side, code in startup.items():
             dt, p = cs.cli_process(["-c", code], env)
@@ -126,6 +132,37 @@ def main() -> int:
             wall = time.perf_counter() - t0
         if rc != 0:
             cs.fail(f"profiled port run exited {rc}")
+
+        contigs = cs.asm_contigs(np.random.default_rng(cs.SEED + 2), gcodes)
+        ctg = os.path.join(wd, "contigs.fa")
+        cs.write_fasta(ctg, contigs)
+        cbases = sum(len(c) for _, c in contigs)
+        asm = ["-ref", ref, "-read", ctg, "-mode", "asm", "--force"]
+        asm_sides = {"asm host": ["--backend", "numpy"],
+                     "asm cuda": ["--backend", "jax", "--device", "cuda"]}
+        asm_lines = []
+        for r in range(args.runs):
+            for side in (list(asm_sides) if r % 2 == 0 else list(asm_sides)[::-1]):
+                dt, p = cs.cli_process(
+                    ["-m", "vacmap_tpu_torch.cli", *asm, *asm_sides[side], "-o",
+                     os.path.join(wd, f"asm{r}.sam")], env)
+                if p.returncode != 0:
+                    cs.fail(f"{side} CLI exited {p.returncode}: {p.stderr[-2000:]}")
+                stats = cs.asm_stats(p.stderr)
+                asm_lines.append(
+                    f"process {side}: {dt:.3f} s = {cbases / dt / 1e6:.4f} Mbp/s "
+                    f"(mapping alone {cs.mapping_seconds(p.stderr):.1f} s; "
+                    f"{len(contigs)} contigs, {cbases} bp) [{card}]"
+                    + (f" {stats}" if stats else ""))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as asm_prof:
+            t0 = time.perf_counter()
+            rc = cli.main([*asm, "--backend", "jax", "--device", "cuda",
+                           "-o", os.path.join(wd, "asm_profiled.sam")])
+            torch.cuda.synchronize()
+            asm_wall = time.perf_counter() - t0
+        if rc != 0:
+            cs.fail(f"profiled asm run exited {rc}")
     cs.say(f"profiled in-process executor run: wall {wall:.3f} s = "
            f"{bases / wall / 1e6:.4f} Mbp/s [{card}]")
     rows = sorted(device_events(torch, prof), key=lambda r: -r[2])
@@ -135,6 +172,15 @@ def main() -> int:
     cs.say(f"device time (kernels and copies) {busy:.1f} ms of wall "
            f"{wall * 1e3:.1f} ms: busy share {busy / (wall * 1e3):.4f}")
     cs.say("host stage spans (summed over threads):\n" + trace.summary())
+    for line in asm_lines:
+        cs.say(line)
+    rows = sorted(device_events(torch, asm_prof), key=lambda r: -r[2])
+    busy = sum(us for _, _, us in rows) / 1e3
+    cs.say(f"profiled in-process asm run: wall {asm_wall:.3f} s [{card}]")
+    for key, n, us in rows[:8]:
+        cs.say(f"  device {us / 1e3:10.3f} ms  n={n:6d}  {key[:90]}")
+    cs.say(f"device time (kernels and copies) {busy:.1f} ms of wall "
+           f"{asm_wall * 1e3:.1f} ms: busy share {busy / (asm_wall * 1e3):.4f}")
     return 0
 
 

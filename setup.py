@@ -6,7 +6,8 @@ setup(
     description="TPU-native long-read aligner for structural variation discovery",
     packages=find_packages(include=["vacmap_tpu", "vacmap_tpu.*",
                                     "vacmap_tpu_torch", "vacmap_tpu_torch.*"]),
-    package_data={"vacmap_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    package_data={"vacmap_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "native/*.cpp"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],
     extras_require={"torch": ["torch"]},

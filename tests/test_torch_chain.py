@@ -13,6 +13,7 @@ from vacmap_tpu.ops.chain_jax import chain_scores_batch as jax_chain_scores_batc
 from vacmap_tpu.ops.chain_ref import chain_dp
 from vacmap_tpu.pipeline.chaining import chain_read
 from vacmap_tpu_torch.ops.chain import (
+    MAX_ANCHORS,
     MAX_N, TorchChainBackend, chain_results, chain_scores_batch,
     chain_scores_batch_ref, prepare_batch, to_device,
 )
@@ -121,8 +122,12 @@ def test_torch_backend_hands_large_coordinates_to_host():
     a64 = a.copy()
     a64[:, 1] += 2**31
     assert be(a64, "global", 15, 40.0, 50, 1000) is None
-    big = np.zeros((MAX_N + 1, 4), np.int64)
+    # more anchors than the per-call backend takes (the reference's
+    # 65,536), and the refund variant above chain_dp.cu's shared-memory
+    # limit (its ledger exists only there)
+    big = np.zeros((MAX_ANCHORS + 1, 4), np.int64)
     assert be(big, "global", 15, 40.0, 50, 1000) is None
+    assert be(big[: MAX_N + 1], "refund", 15, 40.0, 50, 1000) is None
 
 
 def test_chain_results_padding_changes_nothing():

@@ -125,7 +125,7 @@ def test_banded_fill_kernel_matches_plain(dev, T):
 
 
 def test_aligner_on_card_matches_host(dev):
-    from vacmap_tpu import native
+    from vacmap_tpu_torch import native
     from vacmap_tpu_torch.ops.affine_fill import TorchFillAligner
 
     rng = np.random.default_rng(34)
@@ -155,7 +155,7 @@ def test_scan_fill_kernel_matches_plain(dev, N):
 def test_fill_service_on_card_matches_host(dev, scan, monkeypatch):
     """The in-process service on the card, default route (banded and
     row-run kernels) and scan route: the host aligner's CIGARs."""
-    from vacmap_tpu import native
+    from vacmap_tpu_torch import native
     from vacmap_tpu_torch.ops.affine_fill import fill_traceback
     from vacmap_tpu_torch.parallel.fill_service import async_fill_aligner
 
@@ -178,3 +178,124 @@ def test_fill_service_on_card_matches_host(dev, scan, monkeypatch):
         svc.stop()
     want = native.align2p_batch_native(pairs, eqx=True)
     assert [g.cigar for g in got] == [native.ops_to_cigar(w) for w in want]
+
+
+def _warm_inputs(rng, n, n_warm, variant):
+    """One problem: n anchors sorted by the variant's barrier behind a
+    frontier of n_warm anchors in score order (rebased scores, predecessor
+    codes <= -2); rows past n_valid hold what the caller left there."""
+    from vacmap_tpu_torch.ops.chain import prepare_batch
+
+    local = variant in ("fine", "mismatch")
+    a = chainy_anchors(rng, read_len=40 * n, noise=n // 10)[:n]
+    a = a[np.argsort(a[:, 0] + (a[:, 3] if local else 0), kind="stable")]
+    a[:, 0] += 5000
+    f = a[rng.permutation(len(a))[:n_warm]].copy()
+    f[:, 0] -= rng.integers(100, 4000, n_warm)
+    linked = np.concatenate([f, a]) if n_warm else a
+    arrays = prepare_batch([linked], variant, 40.0, 50)
+    N = arrays[0].shape[1]
+    w_S = np.full((1, N), 7.5, np.float32)
+    w_P = np.full((1, N), -3, np.int32)
+    w_S[0, :n_warm] = np.sort(1000.0 - rng.random(n_warm) * 96.0)
+    w_P[0, :n_warm] = -rng.integers(0, 30000, n_warm) - 2
+    w_S[0, n_warm : len(linked)] = 0.0
+    return arrays, w_S, w_P, np.array([n_warm], np.int32), len(linked)
+
+
+@pytest.mark.parametrize("variant", ["global", "global_nocov", "refund", "fine", "mismatch"])
+@pytest.mark.parametrize("n,n_warm", [(9000, 300), (700, 40), (3000, 0)])
+def test_warm_chain_kernel_matches_plain(dev, variant, n, n_warm):
+    """The tiled warm-start kernel against its plain version: scored rows
+    within the stated tolerance, frozen rows and rows past n_valid exact."""
+    from vacmap_tpu_torch.ops.chain import (
+        chain_scores_batch_warm, chain_scores_batch_warm_ref, to_device,
+    )
+
+    rng = np.random.default_rng(41 + n)
+    arrays, w_S, w_P, nw, nv = _warm_inputs(rng, n, n_warm, variant)
+    x = to_device(dev, *arrays, w_S, w_P, nw)
+    kw = dict(kmersize=15, maxdiff=50, maxgap=1000, skipcost=40.0, variant=variant)
+    before = chain_scores_batch_warm.launches
+    S, P = chain_scores_batch_warm(*x, **kw)
+    torch.cuda.synchronize()
+    assert chain_scores_batch_warm.launches == before + 1
+    S0, P0 = chain_scores_batch_warm_ref(*x, **kw)
+    S, P, S0, P0 = (t.cpu().numpy()[0] for t in (S, P, S0, P0))
+    np.testing.assert_allclose(S[n_warm:nv], S0[n_warm:nv], atol=1e-3, rtol=1e-6)
+    assert np.mean(P[n_warm:nv] == P0[n_warm:nv]) >= 0.999
+    assert np.array_equal(S[:n_warm], w_S[0, :n_warm])
+    assert np.array_equal(P[:n_warm], w_P[0, :n_warm])
+    assert np.array_equal(S[nv:], w_S[0, nv:]) and (P[nv:] == -1).all()
+    if n_warm:
+        assert ((P[n_warm:nv] >= 0) & (P[n_warm:nv] < n_warm)).any()
+
+
+def test_cold_chain_above_shared_memory_limit_takes_the_tiled_kernel(dev):
+    """chain_scores_batch above MAX_N anchors launches the tiled kernel
+    with no frozen rows and agrees with chain_scores_batch_ref."""
+    from vacmap_tpu_torch.ops.chain import (
+        MAX_N, chain_scores_batch, chain_scores_batch_ref,
+        chain_scores_batch_warm, prepare_batch, to_device,
+    )
+
+    rng = np.random.default_rng(43)
+    a = chainy_anchors(rng, read_len=40 * 9000, noise=900)
+    assert len(a) > MAX_N
+    arrays = prepare_batch([a], "global_nocov", 40.0, 50)
+    x = to_device(dev, *arrays)
+    kw = dict(kmersize=15, maxdiff=50, maxgap=1000, skipcost=40.0,
+              variant="global_nocov")
+    before = chain_scores_batch_warm.launches
+    S, P = chain_scores_batch(*x, **kw)
+    torch.cuda.synchronize()
+    assert chain_scores_batch_warm.launches == before + 1
+    S0, P0 = chain_scores_batch_ref(*x, **kw)
+    n = len(a)
+    S, P, S0, P0 = (t.cpu().numpy()[0] for t in (S, P, S0, P0))
+    np.testing.assert_allclose(S[:n], S0[:n], atol=1e-3, rtol=1e-6)
+    assert np.mean(P[:n] == P0[:n]) >= 0.999
+    assert (S[n:] == 0).all() and (P[n:] == -1).all()
+
+
+def test_warm_chain_kernel_refuses_unsorted_rows(dev):
+    from vacmap_tpu_torch import DeviceKernelError
+    from vacmap_tpu_torch.ops.chain import chain_scores_batch_warm, to_device
+
+    rng = np.random.default_rng(44)
+    arrays, w_S, w_P, nw, nv = _warm_inputs(rng, 700, 40, "global_nocov")
+    arrays[0][0, [100, 400]] = arrays[0][0, [400, 100]]
+    with pytest.raises(DeviceKernelError):
+        chain_scores_batch_warm(
+            *to_device(dev, *arrays, w_S, w_P, nw), kmersize=15, maxdiff=50,
+            maxgap=1000, skipcost=40.0, variant="global_nocov")
+
+
+def test_asm_cli_on_card_matches_host_path(dev, tmp_path):
+    """`-mode asm --backend jax --device cuda` writes the records of the
+    port's host path; a 600 kb contig with a deletion streams through the
+    warm kernel, a 60 kb one takes the per-call chain kernel."""
+    from vacmap_tpu_torch import cli
+    from vacmap_tpu_torch.ops.chain import chain_scores_batch_warm
+
+    rng = np.random.default_rng(45)
+    g = "".join("ACGT"[i] for i in rng.integers(0, 4, 800_000))
+    big = g[50_000:350_000] + g[352_000:650_000]
+    ref = tmp_path / "ref.fa"
+    ref.write_text(f">g\n{g}\n")
+    rd = tmp_path / "contigs.fa"
+    rd.write_text(f">big\n{big}\n>small\n{g[700_000:760_000]}\n")
+    common = ["-ref", str(ref), "-read", str(rd), "-mode", "asm",
+              "--nowriteindex"]
+    host, card = tmp_path / "host.sam", tmp_path / "card.sam"
+    assert cli.main(common + ["--backend", "numpy", "-o", str(host)]) == 0
+    before = chain_scores_batch_warm.launches
+    assert cli.main(common + ["--backend", "jax", "--device", "cuda",
+                              "-o", str(card)]) == 0
+    assert chain_scores_batch_warm.launches >= before + 6
+
+    def body(p):
+        return [l for l in p.read_text().splitlines() if not l.startswith("@PG")]
+
+    assert body(card) == body(host)
+    assert sum(not l.startswith("@") for l in body(host)) >= 2

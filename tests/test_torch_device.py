@@ -18,42 +18,58 @@ from vacmap_tpu_torch.parallel.device_service import TorchAggregatingChainBacken
 REPO = Path(__file__).resolve().parent.parent
 
 
+def _port_modules():
+    pkg = REPO / "vacmap_tpu_torch"
+    mods = []
+    for f in sorted(pkg.rglob("*.py")):
+        parts = f.relative_to(REPO).with_suffix("").parts
+        if parts[-1] == "__main__":
+            continue  # runs its command line on import
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def _run(code):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+
+
 def test_port_imports_no_jax():
+    """Importing every module of the port loads neither jax nor the JAX
+    package."""
     code = (
-        "import sys\n"
-        "import vacmap_tpu_torch, vacmap_tpu_torch.cli, vacmap_tpu_torch._build\n"
-        "import vacmap_tpu_torch.pipeline.executor, vacmap_tpu_torch.ops.chain\n"
-        "import vacmap_tpu_torch.ops.affine_fill\n"
-        "import vacmap_tpu_torch.parallel.device_service\n"
-        "import vacmap_tpu_torch.parallel.fill_service\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'vacmap_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
+    r = _run(code)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
 
 
 def test_port_imports_with_jax_blocked():
-    """The CLI and the fill service import with ``jax`` unimportable (the
-    card's machine has no jax): every host module they pull from
-    vacmap_tpu is jax-free at import."""
+    """Every module of the port imports with ``jax`` and ``vacmap_tpu``
+    both unimportable (the card's machine has no jax, and the port is a
+    package of its own): the worker loop, the writer and the fill client
+    are the port's."""
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
-        "import vacmap_tpu_torch.cli, vacmap_tpu_torch.parallel.fill_service\n"
-        "import vacmap_tpu_torch.pipeline.executor\n"
-        "from vacmap_tpu.cli import _worker, _worker_loop, _writer\n"
+        "sys.modules['vacmap_tpu'] = None\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from vacmap_tpu_torch.cli import _worker, _worker_loop, _writer\n"
+        "from vacmap_tpu_torch.parallel.fill_service import FillClient\n"
+        "assert FillClient.__mro__[1] is object\n"
         "print('ok')\n"
     )
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
+    r = _run(code)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
 
@@ -80,6 +96,15 @@ def test_wrappers_raise_off_cpu_instead_of_plain_version():
             torch.empty((1,), dtype=torch.int32, **meta),
             torch.empty((1, 128), **meta),
             torch.empty((1, 128), dtype=torch.int32, **meta))
+    with pytest.raises(DeviceKernelError):
+        chain.chain_scores_batch_warm(
+            torch.empty((1, 128, 4), dtype=torch.int32, **meta),
+            torch.empty((1,), dtype=torch.int32, **meta),
+            torch.empty((1, 128), **meta),
+            torch.empty((1, 128), dtype=torch.int32, **meta),
+            torch.empty((1, 128), **meta),
+            torch.empty((1, 128), dtype=torch.int32, **meta),
+            torch.empty((1,), dtype=torch.int32, **meta))
     with pytest.raises(DeviceKernelError):
         affine_fill.fill_rowruns(
             torch.empty((1, 256), dtype=torch.uint8, **meta),

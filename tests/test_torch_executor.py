@@ -17,6 +17,9 @@ from vacmap_tpu.pipeline.chaining import chain_read, prepare_read_anchors
 from vacmap_tpu.pipeline.executor import BatchExecutor
 from vacmap_tpu.pipeline.mapper import Mapper
 from vacmap_tpu.seq import revcomp
+from vacmap_tpu_torch.config import AlignerConfig as PortConfig
+from vacmap_tpu_torch.index import ReferenceIndex as PortIndex
+from vacmap_tpu_torch.pipeline.mapper import Mapper as PortMapper
 from vacmap_tpu_torch.ops.chain import MAX_N
 from vacmap_tpu_torch.parallel.device_service import TorchAggregatingChainBackend
 from vacmap_tpu_torch.parallel.fill_service import AsyncFillAligner
@@ -43,17 +46,25 @@ def world():
     return genome, idx, reads
 
 
+@pytest.fixture(scope="module")
+def port_mapper(world):
+    """A fresh Mapper of the port (its own index, config and host
+    layers) over the world's genome."""
+    pidx = PortIndex.build(world[0], k=15, w=10)
+    return lambda **kw: PortMapper(pidx, PortConfig(mode="H"), **kw)
+
+
 def _cols(lines):
     return sorted(tuple(l.split("\t")[1:6]) for l in lines)
 
 
-def test_torch_executor_matches_jax_executor_and_host(world):
+def test_torch_executor_matches_jax_executor_and_host(world, port_mapper):
     genome, idx, reads = world
     cfg = AlignerConfig(mode="H")
     host = [Mapper(idx, cfg).map_read(n, s) for n, s in reads]
     jax_lines = BatchExecutor(Mapper(idx, cfg), device_local_dp=True).map_batch(
         reads, n_threads=3)
-    m = Mapper(idx, cfg)
+    m = port_mapper()
     ex = TorchBatchExecutor(m, device="cpu")
     assert isinstance(m.chain_backend, TorchAggregatingChainBackend)
     # fills go through the in-process fill service, as in the reference
@@ -69,9 +80,22 @@ def test_torch_executor_matches_jax_executor_and_host(world):
         assert _cols(g) == _cols(j) == _cols(h), name
 
 
-def test_torch_map_stream_matches_map_batch(world):
+def test_torch_executor_replaces_the_per_call_backend(world):
+    """A Mapper built for --backend jax carries the per-call chain
+    backend; under the executor the aggregating one takes its place, so
+    the executor's routes are the same whichever Mapper it is given."""
+    from vacmap_tpu_torch.ops.chain import TorchChainBackend
+
+    pidx = PortIndex.build(world[0], k=15, w=10)
+    m = PortMapper(pidx, PortConfig(mode="H", backend="jax"), device="cpu")
+    assert isinstance(m.chain_backend, TorchChainBackend)
+    TorchBatchExecutor(m, device="cpu", device_fills=False)
+    assert isinstance(m.chain_backend, TorchAggregatingChainBackend)
+
+
+def test_torch_map_stream_matches_map_batch(world, port_mapper):
     genome, idx, reads = world
-    ex = TorchBatchExecutor(Mapper(idx, AlignerConfig(mode="H")), device="cpu")
+    ex = TorchBatchExecutor(port_mapper(), device="cpu")
     try:
         got = list(ex.map_stream(iter(reads), batch_reads=4, n_threads=2))
         assert got == ex.map_batch(reads, n_threads=2)
@@ -79,11 +103,11 @@ def test_torch_map_stream_matches_map_batch(world):
         ex.close()
 
 
-def test_torch_executor_routes_2_31_anchors_to_host(world):
+def test_torch_executor_routes_2_31_anchors_to_host(world, port_mapper):
     """The reference executor casts anchors to int32 unguarded; the port
     hands a read whose anchors reach 2^31 to the host DP."""
     genome, idx, reads = world
-    m = Mapper(idx, AlignerConfig(mode="H"))
+    m = port_mapper()
     ex = TorchBatchExecutor(m, device="cpu")
     anchors = idx.seeds(reads[0][1].upper(), check_num=m.config.check_num)
     _, A = prepare_read_anchors(anchors, len(reads[0][1]))
@@ -194,7 +218,8 @@ def test_torch_cli_without_a_card_exits_nonzero(world, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-mode", "asm"], ["-mode", "H", "--num-processes", "2"],
+    ["-mode", "asm", "--num-processes", "2"],
+    ["-mode", "H", "--num-processes", "2"],
     ["-mode", "H", "--coordinator", "localhost:1234"], ["--prewarm", "-mode", "H"],
 ])
 def test_torch_cli_refuses_unported_paths(argv, tmp_path):
@@ -205,7 +230,7 @@ def test_torch_cli_refuses_unported_paths(argv, tmp_path):
                        str(tmp_path / "q.fa"), "--device", "cpu", *argv])
 
 
-def test_torch_executor_raises_device_errors(world):
+def test_torch_executor_raises_device_errors(world, port_mapper):
     """A failing device call stops the run; it is not dropped like a host
     error.  Without a card, a backend on "cuda" fails in the finishing
     threads' local-DP launches, and an executor on "cuda" in its global
@@ -217,14 +242,13 @@ def test_torch_executor_raises_device_errors(world):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     genome, idx, reads = world
-    m = Mapper(idx, AlignerConfig(mode="H"))
+    m = port_mapper()
     m.chain_backend = TorchAggregatingChainBackend("cuda", max_wait_ms=0.0)
     ex = TorchBatchExecutor(m, device="cpu", device_fills=False)
     with pytest.raises(DeviceKernelError):
         ex.map_batch(reads[:2], n_threads=2)
     with pytest.raises(DeviceKernelError):
-        TorchBatchExecutor(Mapper(idx, AlignerConfig(mode="H")),
-                           device="cuda").map_batch(reads[:2], n_threads=2)
+        TorchBatchExecutor(port_mapper(), device="cuda").map_batch(reads[:2], n_threads=2)
 
 
 def test_aggregating_chain_backend_concurrent_exact():

@@ -10,8 +10,6 @@ import pytest
 import torch
 
 from vacmap_tpu.ops.affine_ref import align2p
-from vacmap_tpu.parallel import fill_service as ref_fs
-from vacmap_tpu.parallel.fill_service import unpack_pairs
 from vacmap_tpu.pipeline.extend import _host_global_batch
 from vacmap_tpu_torch import DeviceKernelError
 from vacmap_tpu_torch.ops.affine_fill import (
@@ -19,7 +17,7 @@ from vacmap_tpu_torch.ops.affine_fill import (
 )
 from vacmap_tpu_torch.parallel import fill_service as fs
 from vacmap_tpu_torch.parallel.fill_service import (
-    AsyncFillAligner, async_fill_aligner, start_fill_server,
+    AsyncFillAligner, async_fill_aligner, start_fill_server, unpack_pairs,
 )
 
 
@@ -267,7 +265,7 @@ def test_calibrated_no_go_stays_on_host(rng, monkeypatch):
 
 
 def test_backpressure_gate_in_process(rng, monkeypatch):
-    monkeypatch.setattr(ref_fs, "MAX_INFLIGHT_JOBS", 8)
+    monkeypatch.setattr(fs, "MAX_INFLIGHT_JOBS", 8)
     svc = _svc()
     try:
         batches = [[_rand_pair(rng) for _ in range(6)] for _ in range(5)]
@@ -285,13 +283,19 @@ def test_deferred_mapper_matches_sync(small_genome, rng):
     port's service as the global aligner."""
     from vacmap_tpu.config import AlignerConfig
     from vacmap_tpu.index import ReferenceIndex
-    from vacmap_tpu.pipeline.mapper import Mapper, PendingLines
+    from vacmap_tpu.pipeline.mapper import Mapper
+    from vacmap_tpu_torch.config import AlignerConfig as PortConfig
+    from vacmap_tpu_torch.index import ReferenceIndex as PortIndex
+    from vacmap_tpu_torch.pipeline.mapper import Mapper as PortMapper
+    from vacmap_tpu_torch.pipeline.mapper import PendingLines
 
-    idx = ReferenceIndex.build(small_genome, k=15, w=10)
-    cfg = AlignerConfig(mode="H")
-    sync_mapper = Mapper(idx, cfg)
+    # the JAX package's host mapper is the reference; the port's mapper
+    # runs with the port's service
+    sync_mapper = Mapper(ReferenceIndex.build(small_genome, k=15, w=10),
+                         AlignerConfig(mode="H"))
     svc = _svc()
-    async_mapper = Mapper(idx, cfg, global_aligner=svc)
+    async_mapper = PortMapper(PortIndex.build(small_genome, k=15, w=10),
+                              PortConfig(mode="H"), global_aligner=svc)
     try:
         genome = small_genome["c1"]
         reads = []
@@ -313,10 +317,14 @@ def test_async_window_bound_stage_matches_sync(small_genome, rng):
     """The divergence window-bound batch defers to the service (the
     aligner sets wants_window_jobs); SAM lines, including the keep/drop
     decisions on junk segments, equal the synchronous host path."""
-    from vacmap_tpu import trace
     from vacmap_tpu.config import AlignerConfig
     from vacmap_tpu.index import ReferenceIndex
-    from vacmap_tpu.pipeline.mapper import Mapper, PendingLines
+    from vacmap_tpu.pipeline.mapper import Mapper
+    from vacmap_tpu_torch import trace
+    from vacmap_tpu_torch.config import AlignerConfig as PortConfig
+    from vacmap_tpu_torch.index import ReferenceIndex as PortIndex
+    from vacmap_tpu_torch.pipeline.mapper import Mapper as PortMapper
+    from vacmap_tpu_torch.pipeline.mapper import PendingLines
 
     idx = ReferenceIndex.build(small_genome, k=15, w=10)
     cfg = AlignerConfig(mode="H")
@@ -333,7 +341,8 @@ def test_async_window_bound_stage_matches_sync(small_genome, rng):
     want = [tuple(Mapper(idx, cfg).map_read(n, s)) for n, s in reads]
     svc = _svc()
     try:
-        m = Mapper(idx, cfg, global_aligner=svc)
+        m = PortMapper(PortIndex.build(small_genome, k=15, w=10),
+                       PortConfig(mode="H"), global_aligner=svc)
         trace.enable()
         trace.reset()
         try:
@@ -385,7 +394,7 @@ def test_backpressure_gate_bounces_to_host(rng, monkeypatch):
     """With the in-flight cap tiny, overload submits host-fill instead of
     queueing; admitted requests still resolve and the shared counter
     drains back to zero; the shared route counters add up."""
-    monkeypatch.setattr(ref_fs, "MAX_INFLIGHT_JOBS", 8)
+    monkeypatch.setattr(fs, "MAX_INFLIGHT_JOBS", 8)
     handle = start_fill_server(1, "cpu", prewarm=False, ready_timeout=60)
     try:
         c = handle.client(0)
@@ -564,10 +573,10 @@ def test_gate_refusals_are_counted_by_cause(rng):
     own bounced jobs."""
     import multiprocessing as mp
 
-    pending = mp.get_context("fork").Value("l", ref_fs.MAX_INFLIGHT_JOBS)
+    pending = mp.get_context("fork").Value("l", fs.MAX_INFLIGHT_JOBS)
     c = _silent_client(pending)
     h = c.submit([_rand_pair(rng) for _ in range(2)], eqx=True)  # cap
-    c._lat_sh.value = 10 * ref_fs.MAX_LAT_S
+    c._lat_sh.value = 10 * fs.MAX_LAT_S
     h2 = c.submit([_rand_pair(rng) for _ in range(3)], eqx=True)  # governor
     assert h[0] == h2[0] == "hostq"
     assert c._routes[:] == [5, 0, 2, 3]

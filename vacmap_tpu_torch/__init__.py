@@ -1,11 +1,14 @@
-"""vacmap-tpu on PyTorch and CUDA: the batched mode-H mapping path with
-hand-written Hopper (sm_90a) kernels for the chain DP and the two
-base-level fill kernels.
+"""vacmap-tpu on PyTorch and CUDA: the mapping paths of ``vacmap_tpu``
+(read modes through the batched executor or the fork pool with a device
+fill service, and ``-mode asm`` with the streaming chain) with
+hand-written Hopper (sm_90a) kernels for the chain DPs and the base-level
+fills.
 
-The host layers (index, seeding, backtrack, harvest, refinement, SAM)
-are imported from ``vacmap_tpu``, which stays the reference; this
-package replaces only the modules that ran on the accelerator.  It
-never imports ``jax``.
+A package of its own: it keeps its own copy of the host layers (config,
+index, io, the native C++ library, seeding, backtrack, harvest,
+refinement, SAM) under the reference's file names, and imports neither
+``vacmap_tpu`` nor ``jax``.  ``vacmap_tpu`` stays the reference that the
+tests hold it against.
 """
 
 from .device import DeviceKernelError, resolve_device

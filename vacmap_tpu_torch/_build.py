@@ -3,7 +3,8 @@
 ``nvcc`` compiles every ``csrc/*.cu`` (one compiler process per source,
 all started together) and links the objects into one shared library with
 a plain C interface, ``build/vacmap_tpu_torch/libvacmap_kernels.so``
-under the checkout root, loaded with ctypes.  The build runs at first use
+under the checkout root, loaded with ctypes.  The host C++ library
+(``native/``) builds into the same directory.  The build runs at first use
 and is reused while a hash of the sources and flags is unchanged.  A
 missing ``nvcc`` or a failed build raises: there is no fallback.
 """
@@ -41,6 +42,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "chain_dp_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                         _F, _P],
+    "chain_dp_warm_launch": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _F, _P],
+    "chain_dp_warm_scratch_bytes": [_I, _I],
     "fill_full_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     "fill_banded_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -122,6 +125,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = (ctypes.c_longlong if name.endswith("_bytes")
+                              else ctypes.c_int)
             _lib = lib
         return _lib

@@ -34,13 +34,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vacmap_tpu import native
-from vacmap_tpu.ops.affine_ref import AlignResult, align2p
-
+from .. import native
 from .._build import library
 from ..device import (
     DeviceKernelError, check_tensor, count_launch, cuda_stream, device_call,
 )
+from .affine_ref import AlignResult, align2p
 
 NEG = -1e9
 BAND_W = 128  # band lanes

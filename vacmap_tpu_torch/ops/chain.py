@@ -9,27 +9,35 @@ Layout, as in the reference:
   maxdiff_i (B, N) int32 adaptive maxdiff per anchor
 Returns S (B, N) float32 and P (B, N) int32 (-1 = chain start).
 
-``chain_scores_batch`` runs the CUDA kernel (csrc/chain_dp.cu) on CUDA
-tensors and the plain version ``chain_scores_batch_ref`` on CPU tensors.
+``chain_scores_batch`` runs the CUDA kernel (csrc/chain_dp.cu; above
+MAX_N anchors csrc/chain_dp_large.cu) on CUDA tensors and the plain
+version ``chain_scores_batch_ref`` on CPU tensors.
+``chain_scores_batch_warm`` is the warm-start (frontier-carry) DP of the
+asm streaming chain: csrc/chain_dp_large.cu on CUDA tensors,
+``chain_scores_batch_warm_ref`` on CPU tensors.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vacmap_tpu.ops.chain_ref import ChainResult
-
 from .._build import library
 from ..device import (
     DeviceKernelError, check_tensor, count_launch, cuda_stream, device_call,
 )
+from .chain_ref import ChainResult
 
 NEG = -1e30
 VARIANTS = ("global", "global_nocov", "refund", "fine", "mismatch")
-MAX_N = 8192  # the kernel keeps N anchors + N scores in shared memory
+MAX_N = 8192  # chain_dp.cu keeps N anchors + N scores in shared memory
+# per-call anchors of TorchChainBackend (chain_dp_large.cu above MAX_N) and
+# per-block anchors of TorchStreamChainBackend, as in the reference
+MAX_ANCHORS = 65536
+MAX_STREAM_ANCHORS = 1 << 20
 
 
 def _f32(x: float) -> float:
@@ -136,6 +144,24 @@ def _pair_scores(ai, Aj, Sj, skip_i, maxdiff_i, kcoef, maxgap, skipcost,
     return test, colinear, bonus
 
 
+def _row_winner(test, S, mask, l_i, jidx):
+    """One scan step's reduction: the best candidate under ``mask`` by
+    (test, S[j], j), against the chain start l_i.  Returns (S_i, P_i,
+    has_pred) of shape (B,)."""
+    neg_full = torch.full_like(test, NEG)
+    test = torch.where(mask, test, neg_full)
+    m = test.max(dim=1).values
+    has_pred = m > l_i
+    # tie-break: among argmax, highest S[j]; then largest j
+    is_max = test == m[:, None]
+    s_best = torch.where(is_max, S, neg_full).max(dim=1).values
+    cand = is_max & (S == s_best[:, None])
+    p = torch.where(cand, jidx[None, :], -1).max(dim=1).values
+    S_i = torch.where(has_pred, m, l_i)
+    P_i = torch.where(has_pred, p, torch.full_like(p, -1))
+    return S_i, P_i, has_pred
+
+
 def chain_scores_batch_ref(
     anchors: torch.Tensor, n_valid: torch.Tensor, skip_i: torch.Tensor,
     maxdiff_i: torch.Tensor, *, kmersize: int = 15, maxdiff: int = 50,
@@ -161,7 +187,6 @@ def chain_scores_batch_ref(
     kcoef = _f32(0.01 * kmersize)
     jidx = torch.arange(N, dtype=torch.int32, device=dev)
     valid_j = jidx[None, :] < n_valid[:, None]
-    neg_full = torch.full((B, N), NEG, dtype=torch.float32, device=dev)
     minus1 = torch.full((B,), -1, dtype=torch.int32, device=dev)
     rows = torch.arange(B, device=dev)
 
@@ -181,17 +206,8 @@ def chain_scores_batch_ref(
                           & (fixed_pen + bonus.float() >= 0))
             test = torch.where(refundable, test + pre_pen, test)
         mask = (barrier < barrier[:, i : i + 1]) & valid_j
-        test = torch.where(mask, test, neg_full)
         l_i = anchors[:, i, 3].float()
-        m = test.max(dim=1).values
-        has_pred = m > l_i
-        # tie-break: among argmax, highest S[j]; then largest j
-        is_max = test == m[:, None]
-        s_best = torch.where(is_max, S, neg_full).max(dim=1).values
-        cand = is_max & (S == s_best[:, None])
-        p = torch.where(cand, jidx[None, :], -1).max(dim=1).values
-        S_i = torch.where(has_pred, m, l_i)
-        P_i = torch.where(has_pred, p, minus1)
+        S_i, P_i, has_pred = _row_winner(test, S, mask, l_i, jidx)
         active = i < n_valid
         S_i = torch.where(active, S_i, torch.zeros_like(S_i))
         P_i = torch.where(active, P_i, minus1)
@@ -236,7 +252,15 @@ def chain_scores_batch(
         raise DeviceKernelError(f"anchors must be (B, N, 4), got {tuple(anchors.shape)}")
     B, N, _ = anchors.shape
     if N > MAX_N:
-        raise DeviceKernelError(f"chain kernel takes N <= {MAX_N}, got {N}")
+        if variant == "refund":
+            raise DeviceKernelError(
+                f"the refund chain kernel takes N <= {MAX_N}, got {N}")
+        # the tiled kernel, cold: no frozen rows, S starts at 0
+        zeros = torch.zeros((B, N), dtype=torch.float32, device=dev)
+        return chain_scores_batch_warm(
+            anchors, n_valid, skip_i, maxdiff_i, zeros,
+            torch.zeros((B, N), dtype=torch.int32, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev), **kw)
     check_tensor("anchors", anchors, torch.int32, (B, N, 4), dev)
     check_tensor("n_valid", n_valid, torch.int32, (B,), dev)
     check_tensor("skip_i", skip_i, torch.float32, (B, N), dev)
@@ -266,6 +290,132 @@ def chain_scores_batch(
 chain_scores_batch.launches = 0
 
 
+def chain_scores_batch_warm_ref(
+    anchors: torch.Tensor, n_valid: torch.Tensor, skip_i: torch.Tensor,
+    maxdiff_i: torch.Tensor, warm_S: torch.Tensor, warm_P: torch.Tensor,
+    n_warm: torch.Tensor, *, kmersize: int = 15, maxdiff: int = 50,
+    maxgap: int = 1000, skipcost: float = 40.0, variant: str = "global",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the warm-start DP: the loop of
+    ``chain_scores_batch_ref`` with the reference scan's frozen rows.  The
+    first n_warm rows keep warm_S and their warm_P codes and are never
+    scored; rows at or past n_valid keep warm_S and get P = -1.  "refund"
+    is scored without its ledger, as the reference's warm scan does."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown chain variant {variant!r}")
+    asm_geo = variant == "global_nocov"
+    if asm_geo:
+        variant = "global"  # penalties already flat in skip_i/maxdiff_i
+    B, N, _ = anchors.shape
+    dev = anchors.device
+    local = variant in ("fine", "mismatch")
+    anchors = anchors.to(torch.int32)
+    n_valid = n_valid.to(torch.int32)
+    n_warm = n_warm.to(torch.int32)
+    skip_i = skip_i.to(torch.float32)
+    maxdiff_i = maxdiff_i.to(torch.int32)
+    warm_P = warm_P.to(torch.int32)
+    barrier = anchors[:, :, 0] + (anchors[:, :, 3] if local else 0)
+    Aj = tuple(anchors[:, :, k] for k in range(4))
+    kcoef = _f32(0.01 * kmersize)
+    jidx = torch.arange(N, dtype=torch.int32, device=dev)
+    valid_j = jidx[None, :] < n_valid[:, None]
+
+    S = warm_S.to(torch.float32).clone()
+    P = torch.where(jidx[None, :] < n_warm[:, None], warm_P,
+                    torch.full_like(warm_P, -1))
+    # rows below every n_warm are frozen, rows past every n_valid inactive
+    lo = int(n_warm.min()) if B else 0
+    hi = int(n_valid.max()) if B else 0
+    for i in range(lo, hi):
+        ai = tuple(anchors[:, i, k : k + 1] for k in range(4))
+        test, _colinear, _bonus = _pair_scores(
+            ai, Aj, S, skip_i[:, i : i + 1], maxdiff_i[:, i : i + 1], kcoef,
+            maxgap, skipcost, variant, asm_geo)
+        mask = (barrier < barrier[:, i : i + 1]) & valid_j
+        l_i = anchors[:, i, 3].float()
+        S_i, P_i, _ = _row_winner(test, S, mask, l_i, jidx)
+        active = (i < n_valid) & ~(i < n_warm)
+        S[:, i] = torch.where(active, S_i, S[:, i])
+        P[:, i] = torch.where(active, P_i, P[:, i])
+    return S, P
+
+
+def chain_scores_batch_warm(
+    anchors: torch.Tensor, n_valid: torch.Tensor, skip_i: torch.Tensor,
+    maxdiff_i: torch.Tensor, warm_S: torch.Tensor, warm_P: torch.Tensor,
+    n_warm: torch.Tensor, *, kmersize: int = 15, maxdiff: int = 50,
+    maxgap: int = 1000, skipcost: float = 40.0, variant: str = "global",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warm-start (frontier-carry) chaining DP, counterpart of the
+    reference's ``chain_scores_batch_warm``: warm_S (B, N) f32 and warm_P
+    (B, N) int32 hold the fixed scores and the (negative) predecessor
+    codes of the first n_warm (B,) rows.  Returns (S, P) of shape (B, N).
+    CPU tensors take the plain version; CUDA tensors launch the tiled
+    kernel (or raise DeviceKernelError).  The kernel needs the rows in
+    [n_warm, n_valid) sorted by barrier, as every caller's are."""
+    kw = dict(kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
+              skipcost=skipcost, variant=variant)
+    dev = anchors.device
+    if dev.type == "cpu":
+        return chain_scores_batch_warm_ref(anchors, n_valid, skip_i,
+                                           maxdiff_i, warm_S, warm_P, n_warm,
+                                           **kw)
+    if dev.type != "cuda":
+        raise DeviceKernelError(f"chain kernel: unsupported device {dev}")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown chain variant {variant!r}")
+    if anchors.dim() != 3 or anchors.shape[2] != 4:
+        raise DeviceKernelError(f"anchors must be (B, N, 4), got {tuple(anchors.shape)}")
+    B, N, _ = anchors.shape
+    check_tensor("anchors", anchors, torch.int32, (B, N, 4), dev)
+    check_tensor("n_valid", n_valid, torch.int32, (B,), dev)
+    check_tensor("skip_i", skip_i, torch.float32, (B, N), dev)
+    check_tensor("maxdiff_i", maxdiff_i, torch.int32, (B, N), dev)
+    check_tensor("warm_S", warm_S, torch.float32, (B, N), dev)
+    check_tensor("warm_P", warm_P, torch.int32, (B, N), dev)
+    check_tensor("n_warm", n_warm, torch.int32, (B,), dev)
+    if anchors.data_ptr() % 16:
+        raise DeviceKernelError("anchors must be 16-byte aligned")
+    S = torch.empty((B, N), dtype=torch.float32, device=dev)
+    P = torch.empty((B, N), dtype=torch.int32, device=dev)
+    if B == 0 or N == 0:
+        return S, P
+    # the rows to score, and the kernel's precondition: between n_warm and
+    # n_valid the barrier never decreases (one small reduction and one
+    # read-back per call, against a DP of N^2 / 2 pair scores)
+    local = variant in ("fine", "mismatch")
+    barrier = anchors[:, :, 0] + (anchors[:, :, 3] if local else 0)
+    jidx = torch.arange(1, N, dtype=torch.int32, device=dev)
+    unsorted = ((barrier[:, 1:] < barrier[:, :-1])
+                & (jidx[None, :] > n_warm[:, None])
+                & (jidx[None, :] < n_valid[:, None])).any()
+    row_lo, row_hi, bad = torch.stack(
+        [n_warm.min(), n_valid.max(), unsorted.to(torch.int32)]).tolist()
+    if bad:
+        raise DeviceKernelError(
+            "warm chain kernel: rows past n_warm are not sorted by barrier")
+    row_lo, row_hi = max(min(row_lo, N), 0), max(min(row_hi, N), 0)
+    lib = library()
+    scratch = torch.empty(
+        (max(int(lib.chain_dp_warm_scratch_bytes(B, N)), 1),),
+        dtype=torch.uint8, device=dev)
+    rc = lib.chain_dp_warm_launch(
+        anchors.data_ptr(), n_valid.data_ptr(), n_warm.data_ptr(),
+        skip_i.data_ptr(), maxdiff_i.data_ptr(), warm_S.data_ptr(),
+        warm_P.data_ptr(), S.data_ptr(), P.data_ptr(), scratch.data_ptr(),
+        B, N, row_lo, row_hi, VARIANTS.index(variant),
+        _f32(0.01 * kmersize), int(maxgap), _f32(skipcost), cuda_stream(dev))
+    if rc != 0:
+        raise DeviceKernelError(
+            f"chain_dp_warm kernel launch failed: cudaError {rc}")
+    count_launch(chain_scores_batch_warm)
+    return S, P
+
+
+chain_scores_batch_warm.launches = 0
+
+
 def prepare_batch(anchor_list, variant: str, skipcost: float, maxdiff: int):
     """Pad a list of per-read (n,4) anchor arrays (already barrier-sorted)
     into device inputs, computing the adaptive per-anchor penalties on
@@ -293,17 +443,23 @@ def prepare_batch(anchor_list, variant: str, skipcost: float, maxdiff: int):
     return anchors, n_valid, skip_i, maxdiff_i
 
 
-def to_device(device, anchors, n_valid, skip_i, maxdiff_i):
+def to_device(device, *arrays):
     """prepare_batch's numpy arrays -> contiguous tensors on ``device``."""
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (anchors, n_valid, skip_i, maxdiff_i))
+                 for a in arrays)
+
+
+def _int32_coords(A: np.ndarray) -> bool:
+    """Every reference coordinate below 2^31 (the device anchors are
+    int32)."""
+    return len(A) == 0 or int(A[:, 1].max()) < 2**31
 
 
 def device_chainable(A: np.ndarray) -> bool:
-    """True when the kernel can take one read's (n, 4) anchors: at most
-    MAX_N of them and every reference coordinate below 2^31 (the device
-    anchors are int32).  The host DP takes the others."""
-    return len(A) <= MAX_N and (len(A) == 0 or int(A[:, 1].max()) < 2**31)
+    """True when a batched launch of chain_dp.cu can take one read's
+    (n, 4) anchors: at most MAX_N of them and int32 coordinates.  The
+    host DP takes the others."""
+    return len(A) <= MAX_N and _int32_coords(A)
 
 
 def chain_results(device, anchor_list, variant: str, kmersize: int,
@@ -342,16 +498,81 @@ def chain_results(device, anchor_list, variant: str, kmersize: int,
 
 class TorchChainBackend:
     """chain_read/chain_local-compatible backend: per-call batch of one
-    (the batched executor batches through chain_results itself).
-    Returns None, so the host DP takes over, for more than MAX_N anchors
-    or a reference coordinate of 2^31 or more."""
+    (the batched executor batches through chain_results itself).  Above
+    MAX_N anchors the call takes the tiled kernel.  Returns None, so the
+    host DP takes over, for more than ``max_anchors`` anchors, for a
+    reference coordinate of 2^31 or more, and for the refund variant
+    above MAX_N (its ledger exists only in chain_dp.cu)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cpu", max_anchors: int = MAX_ANCHORS):
         self.device = torch.device(device)
+        self.max_anchors = max_anchors
 
     def __call__(self, A: np.ndarray, variant: str, kmersize: int,
                  skipcost: float, maxdiff: int, maxgap: int):
-        if not device_chainable(A):
+        if len(A) > self.max_anchors or not _int32_coords(A):
+            return None
+        if variant == "refund" and len(A) > MAX_N:
             return None
         return chain_results(self.device, [A], variant, kmersize, skipcost,
                              maxdiff, maxgap)[0]
+
+
+class TorchStreamChainBackend:
+    """stream_chain-compatible device backend for the asm frontier-carry
+    chain (counterpart of the reference's JaxStreamChainBackend): one
+    warm-start call per anchor block, N padded to a power of two.
+
+    ``calls`` counts the blocks offered, ``engaged`` those the device
+    chained, ``device_s`` the wall time of the device calls (transfers
+    included), ``rows`` and ``max_rows`` the anchors (frontier included)
+    of the chained blocks in all and of the largest one, and ``declined``
+    the blocks left to the native DP by cause:
+    "variant" (scar, asm_fine: no device kernel), "size" (empty or over
+    ``max_anchors``) and "coords" (a reference coordinate of 2^31 or
+    more).  A failed device call raises DeviceKernelError."""
+
+    def __init__(self, device="cpu", max_anchors: int = MAX_STREAM_ANCHORS):
+        self.device = torch.device(device)
+        self.max_anchors = max_anchors
+        self.calls = 0
+        self.engaged = 0
+        self.device_s = 0.0
+        self.rows = 0
+        self.max_rows = 0
+        self.declined = {"variant": 0, "size": 0, "coords": 0}
+
+    def __call__(self, linked: np.ndarray, variant: str, kmersize: int,
+                 skipcost: float, maxdiff: int, maxgap: int,
+                 warm_S: np.ndarray, warm_P: np.ndarray):
+        self.calls += 1
+        n = len(linked)
+        why = ("size" if n == 0 or n > self.max_anchors
+               else "variant" if variant in ("scar", "asm_fine")
+               else None if _int32_coords(linked) else "coords")
+        if why is not None:
+            self.declined[why] += 1
+            return None
+        t0 = time.perf_counter()
+        anchors, n_valid, skip_i, maxdiff_i = prepare_batch(
+            [linked.astype(np.int64)], variant, skipcost, maxdiff)
+        N = anchors.shape[1]
+        # the frontier's f64 scores become f32 here, as in the reference
+        w_S = np.zeros((1, N), np.float32)
+        w_P = np.zeros((1, N), np.int32)
+        w_S[0, : len(warm_S)] = warm_S
+        w_P[0, : len(warm_P)] = warm_P
+        n_warm = np.array([len(warm_S)], np.int32)
+        with device_call(f"{variant} warm chain device call"):
+            S, P = chain_scores_batch_warm(
+                *to_device(self.device, anchors, n_valid, skip_i, maxdiff_i,
+                           w_S, w_P, n_warm),
+                kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
+                skipcost=skipcost, variant=variant)
+            out = (S.cpu().numpy().astype(np.float64)[0][:n],
+                   P.cpu().numpy().astype(np.int64)[0][:n])
+        self.engaged += 1
+        self.rows += n
+        self.max_rows = max(self.max_rows, n)
+        self.device_s += time.perf_counter() - t0
+        return out

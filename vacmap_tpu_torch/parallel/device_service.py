@@ -44,7 +44,7 @@ class TorchAggregatingChainBackend:
 
     def __call__(self, A, variant, kmersize, skipcost, maxdiff, maxgap):
         if variant in ("scar", "asm_fine"):
-            return None  # host-only variants (R/asm local drivers)
+            return None  # host-only variants (R/asm local routines)
         if len(A) == 0 or not device_chainable(A):
             return None
         req = {

@@ -51,28 +51,52 @@ import sys
 import threading
 import time
 import traceback
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from vacmap_tpu import native
-from vacmap_tpu.ops.affine_ref import AlignResult
-from vacmap_tpu.parallel import fill_service as _ref
-from vacmap_tpu.parallel.fill_service import (
-    DEFAULT_BUCKETS, DEFAULT_SHAPE_B, DEPTH, MAX_JOBS, MAX_WAIT_MS,
-    N_DOWNLOADERS, QUIESCENT_S, pack_pairs,
-)
-from vacmap_tpu.pipeline.extend import _host_global_batch
-
+from .. import native
 from ..device import DeviceKernelError, resolve_device
 from ..ops import affine_fill
 from ..ops.affine_fill import (
     BANDED, TorchFillAligner, _decode_packed_python, band_eligible,
     rowruns_to_packed,
 )
+from ..ops.affine_ref import AlignResult
+from ..pipeline.extend import HostBatchFillAligner, _host_global_batch
 
 log = logging.getLogger("vacmap_tpu_torch")
+
+# The service's knobs keep the reference's values: they were measured
+# with these (PERF.md), and changing one needs a benchmark.
+DEFAULT_BUCKETS = (256, 512)
+# cap on the jobs of one launch, per length bucket
+DEFAULT_SHAPE_B = {256: 1024, 512: 256}
+MAX_JOBS = 4096
+# accumulation window: under load the dispatcher batches up to this long
+# (bigger calls amortize the per-call pad and dispatch CPU that the
+# service takes from the mapping cores); a quiescence check (no new
+# request for QUIESCENT_S) dispatches early so that trickle traffic keeps
+# low latency
+MAX_WAIT_MS = float(os.environ.get("VACMAP_TPU_FILL_WAIT_MS", "15.0"))
+QUIESCENT_S = 0.004
+# in-flight pipeline: depth 2 makes the batcher self-clocking.  The
+# dispatcher blocks on inflight.put while the device works, so incoming
+# requests pile into ONE next batch: occupancy rises under load and
+# latency stays one small window when idle
+DEPTH = int(os.environ.get("VACMAP_TPU_FILL_DEPTH", "2"))
+N_DOWNLOADERS = 1
+# adaptive partial offload: clients keep a SHARED count of jobs in flight
+# to the service and submit only while it is below this cap; overflow
+# jobs run on the host at once instead of queueing behind the service
+MAX_INFLIGHT_JOBS = int(os.environ.get("VACMAP_TPU_FILL_MAX_INFLIGHT",
+                                       "3072"))
+# latency governor: clients keep an EMA of the request round trip and
+# stop admitting new work while it exceeds this bound (the deferred
+# window of 32 reads hides about that much device latency).  The cap
+# above bounds memory and queue growth; this bounds waiting
+MAX_LAT_S = float(os.environ.get("VACMAP_TPU_FILL_LAT_S", "0.25"))
 
 # cross-process service status (shared ctypes int)
 STARTING, SERVING, DECLINED, FAILED = 0, 1, 2, 3
@@ -100,6 +124,42 @@ def _error_text(err: BaseException) -> str:
 def _count(routes, kind: int, n: int) -> None:
     with routes.get_lock():
         routes[kind] += n
+
+
+# ---------------------------------------------------------------------------
+# request packing (both transports)
+# ---------------------------------------------------------------------------
+
+
+def pack_pairs(pairs: Sequence[Tuple[np.ndarray, np.ndarray]]):
+    """(lens int32 (n,2), concat uint8 buffer): one small message per
+    request instead of 2n pickled arrays."""
+    n = len(pairs)
+    lens = np.empty((n, 2), np.int32)
+    total = 0
+    for i, (t, q) in enumerate(pairs):
+        lens[i, 0] = len(t)
+        lens[i, 1] = len(q)
+        total += len(t) + len(q)
+    buf = np.empty(total, np.uint8)
+    off = 0
+    for t, q in pairs:
+        buf[off : off + len(t)] = t
+        off += len(t)
+        buf[off : off + len(q)] = q
+        off += len(q)
+    return lens, buf
+
+
+def unpack_pairs(lens: np.ndarray, buf: np.ndarray):
+    """Inverse of pack_pairs: the (t, q) views into ``buf``."""
+    out = []
+    off = 0
+    for i in range(len(lens)):
+        lt, lq = int(lens[i, 0]), int(lens[i, 1])
+        out.append((buf[off : off + lt], buf[off + lt : off + lt + lq]))
+        off += lt + lq
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +632,7 @@ class AsyncFillAligner:
         """Non-reserving saturation peek (see FillClient.accepting)."""
         if self.failed or not self.ready.is_set():
             return False
-        return self._pending_n < _ref.MAX_INFLIGHT_JOBS
+        return self._pending_n < MAX_INFLIGHT_JOBS
 
     def submit(self, pairs, eqx: bool = False):
         """Enqueue a fill batch; returns a handle for wait().  Before the
@@ -588,7 +648,7 @@ class AsyncFillAligner:
             return ("host", pairs, eqx)
         box = {"event": threading.Event(), "msg": None, "n": len(pairs)}
         with self._lock:
-            admit = self._pending_n < _ref.MAX_INFLIGHT_JOBS
+            admit = self._pending_n < MAX_INFLIGHT_JOBS
             if admit:
                 self._pending_n += len(pairs)
                 req_id = self._next_id
@@ -815,48 +875,139 @@ def start_fill_server(n_clients: int, device, buckets=DEFAULT_BUCKETS,
     return handle
 
 
-class FillClient(_ref.FillClient):
-    """Worker-side handle: the reference client (thread-safe
-    ``submit``/``wait``, admission gate with the in-flight cap and the
-    latency governor, cross-read host batches for bounced jobs, responses
-    drained inside ``wait``) on this service's transport.  It differs in
-    four ways: the service's status is checked, and a failed service
-    raises DeviceKernelError; the round trip ends at the service's send;
-    routes are counted in the shared counters; and ``wait`` never
-    recomputes a request sent to the service on the host.  ``edit_batch``
-    (the reference's, with no edit kernel) answers all-None at once."""
+class FillClient:
+    """Worker-side handle: thread-safe ``submit``/``wait`` (and the
+    blocking ``align_batch``), so that many mapping threads can have
+    fills in flight at once.  Submits pass an admission gate (the shared
+    in-flight cap and the latency governor); bounced jobs join a
+    cross-read host batch.  The service's status is checked on every
+    call, and a failed service raises DeviceKernelError; ``wait`` never
+    recomputes on the host a request that was sent to the service.
+
+    Response draining happens INSIDE ``wait()`` (one drainer at a time,
+    poll-then-recv), NOT in a parked reader thread: mp.Queue.get holds
+    the queue's cross-process _rlock while blocked in recv, so a daemon
+    router thread parked in get() at process exit leaves that shared
+    lock acquired FOREVER, and the next fork generation of workers then
+    deadlocks on acquire.  The drain pattern holds _rlock only across a
+    short poll + one message read."""
+
+    wants_window_jobs = True  # see AsyncFillAligner
 
     def __init__(self, worker_id: int, req_q, resp_q, ready_evt, status,
                  err_buf, pending_ctr=None, lat_sh=None, routes=None):
-        super().__init__(worker_id, req_q, resp_q, ready_evt=ready_evt,
-                         pending_ctr=pending_ctr, lat_sh=lat_sh)
+        self.worker_id = worker_id
+        self.req_q = req_q
+        self.resp_q = resp_q
+        self._events: Dict[int, dict] = {}
+        self._lock = threading.Lock()
+        self._drain_lock = threading.Lock()  # one drainer at a time
+        self._next_id = 0
+        self.failed = False  # a calibrated no-go: host fills for good
+        self._ready_evt = ready_evt
+        self._ready_cache = ready_evt is None  # no gate -> trust caller
+        self._pending = pending_ctr  # shared in-flight job counter
+        self._lat_sh = lat_sh  # shared round-trip EMA (survives forks)
         self._status = status
         self._err_buf = err_buf
         self._routes = routes if routes is not None else mp.Array("q", 4)
+        self.offloaded_jobs = 0  # accepted by the gate (this client)
+        self.bounced_jobs = 0    # host-filled by the gate (this client)
+        # gate-bounced jobs join a CROSS-READ host batch (the host
+        # deployment's HostBatchFillAligner) instead of filling per read:
+        # per-read residue batches lose the striped kernel's cross-read
+        # lane packing
+        self._hb = None
+        self._hb_lock = threading.Lock()
 
     def _check(self):
         msg = _status_error(self._status, self._err_buf)
         if msg is not None:
             raise DeviceKernelError(f"device fill service: {msg}")
 
+    def _gate_open(self) -> bool:
+        """Latency-governor half of the admission gate (no reservation):
+        False while the round-trip EMA says responses come back slower
+        than the deferred window can hide.  Shared across forks/workers;
+        decays on rejected peeks so a recovered service gets retried."""
+        v = self._lat_sh.value if self._lat_sh is not None else -1.0
+        if 0 <= v <= MAX_LAT_S:
+            return True
+        if v > MAX_LAT_S:
+            with self._lat_sh.get_lock():
+                self._lat_sh.value *= 0.995
+            return False
+        # no estimate yet (service fresh): admit conservatively so the
+        # first deferred windows cannot pile a seconds-deep backlog
+        # before the first round-trip measurement lands
+        ctr = self._pending
+        return ctr is None or ctr.value < min(512, MAX_INFLIGHT_JOBS)
+
+    def _reserve(self, n: int) -> bool:
+        if not self._gate_open():
+            return False
+        ctr = self._pending
+        if ctr is None:
+            return True
+        with ctr.get_lock():
+            if ctr.value >= MAX_INFLIGHT_JOBS:
+                return False
+            ctr.value += n
+        return True
+
+    def _admit(self, n: int) -> bool:
+        """Backpressure gate: reserve n in-flight job slots, or report
+        the service saturated (the caller host-fills instead of
+        queueing).  Applies BOTH halves, the latency governor and the
+        in-flight cap, and counts the route."""
+        # the governor closes on this estimate; below it (or with no
+        # estimate yet) a refusal is the in-flight cap's
+        lat = self._lat_sh.value if self._lat_sh is not None else -1.0
+        admitted = self._reserve(n)
+        if admitted:
+            self.offloaded_jobs += n
+        else:
+            self.bounced_jobs += n
+        kind = (OFFLOADED if admitted else
+                GOVERNED if lat > MAX_LAT_S else CAPPED)
+        _count(self._routes, kind, n)
+        return admitted
+
+    def _release(self, box) -> None:
+        ctr = self._pending
+        if ctr is not None and box is not None:
+            n = box.get("n", 0)
+            if n:
+                box["n"] = 0
+                with ctr.get_lock():
+                    ctr.value -= n
+
+    def accepting(self) -> bool:
+        """Non-reserving saturation peek: False means a submit would be
+        bounced by the in-flight cap, or is likely to come back slower
+        than the deferred window can hide (latency governor), so the
+        caller should take its host path up-front (refine_chain's
+        window-branch gate)."""
+        if self.failed or not self._server_ready():
+            return False
+        if not self._gate_open():
+            return False
+        ctr = self._pending
+        return ctr is None or ctr.value < MAX_INFLIGHT_JOBS
+
     def _server_ready(self) -> bool:
         """Non-blocking: host fills until the service is warm, and for
         good after a calibrated no-go; raises after a service failure."""
         self._check()
-        if (not self._ready_cache and self._ready_evt.is_set()
-                and self._status.value == DECLINED):
+        if self._ready_cache or self.failed:
+            return self._ready_cache and not self.failed
+        if not self._ready_evt.is_set():
+            return False
+        if self._status.value == DECLINED:
             self.failed = True
-        return super()._server_ready()
-
-    def _admit(self, n: int) -> bool:
-        # the governor closes on this estimate; below it (or with no
-        # estimate yet) a refusal is the in-flight cap's
-        lat = self._lat_sh.value if self._lat_sh is not None else -1.0
-        admitted = super()._admit(n)
-        kind = (OFFLOADED if admitted else
-                GOVERNED if lat > _ref.MAX_LAT_S else CAPPED)
-        _count(self._routes, kind, n)
-        return admitted
+            return False
+        self._ready_cache = True
+        return True
 
     def _recv_one(self, poll_s: float) -> bool:
         """Read and route at most one response message, holding the
@@ -889,11 +1040,60 @@ class FillClient(_ref.FillClient):
             box["event"].set()
         return True
 
+    def _drain_until(self, box, timeout: float) -> bool:
+        """Drive response draining until ``box`` resolves (True) or the
+        deadline passes (False).  Concurrent waiters take turns: one
+        drains, the rest park briefly on their own events."""
+        deadline = time.monotonic() + timeout
+        while True:
+            if box["event"].is_set():
+                return True
+            if self._drain_lock.acquire(blocking=False):
+                try:
+                    if not box["event"].is_set():
+                        self._recv_one(0.05)
+                finally:
+                    self._drain_lock.release()
+            else:
+                box["event"].wait(0.02)
+            if box["event"].is_set():
+                return True
+            if time.monotonic() >= deadline:
+                return False
+
+    def __call__(self, pairs, eqx: bool = False):
+        return self.align_batch(pairs, eqx)
+
+    def align_batch(self, pairs, eqx: bool = False, timeout: float = WAIT_S):
+        return self.wait(self.submit(pairs, eqx), timeout=timeout)
+
+    # -- async interface ----------------------------------------------
+    def _host_queue(self, pairs, eqx):
+        with self._hb_lock:
+            if self._hb is None:
+                self._hb = HostBatchFillAligner()
+            return self._hb.submit(pairs, eqx)
+
+    def _host_wait(self, hq):
+        with self._hb_lock:
+            return self._hb.wait(hq)
+
     def submit(self, pairs, eqx: bool = False):
         self._check()
-        if pairs:
-            _count(self._routes, SUBMITTED, len(pairs))
-        return super().submit(pairs, eqx)
+        if not pairs:
+            return (None, None, pairs, eqx)
+        _count(self._routes, SUBMITTED, len(pairs))
+        if (self.failed or not self._server_ready()
+                or not self._admit(len(pairs))):
+            return ("hostq", self._host_queue(pairs, eqx), pairs, eqx)
+        box = {"event": threading.Event(), "msg": None, "n": len(pairs),
+               "t0": time.monotonic()}
+        with self._lock:
+            req_id = self._next_id
+            self._next_id += 1
+            self._events[req_id] = box
+        self.req_q.put((self.worker_id, req_id, *pack_pairs(pairs)))
+        return (box, req_id, pairs, eqx)
 
     def wait(self, handle, timeout: Optional[float] = None):
         """Resolve a submit.  An error response, a failed service, or no
@@ -913,3 +1113,8 @@ class FillClient(_ref.FillClient):
             raise DeviceKernelError(
                 f"device fill service: no response in {timeout:.0f} s")
         return decode_response(box["msg"], pairs, eqx)
+
+    def edit_batch(self, pairs):
+        """No device edit-distance kernel: every entry is None (the
+        caller's host ladder)."""
+        return [None] * len(pairs)

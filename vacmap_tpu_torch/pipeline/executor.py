@@ -23,15 +23,14 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vacmap_tpu.ops.chain_ref import ChainResult
-from vacmap_tpu.pipeline.chaining import prepare_read_anchors
-from vacmap_tpu.pipeline.mapper import Mapper
-from vacmap_tpu.pipeline.sam import records_to_sam
-
 from ..device import DeviceKernelError
-from ..ops.chain import chain_results, device_chainable
+from ..ops.chain import TorchChainBackend, chain_results, device_chainable
+from ..ops.chain_ref import ChainResult
 from ..parallel.device_service import TorchAggregatingChainBackend
 from ..parallel.fill_service import async_fill_aligner
+from .chaining import prepare_read_anchors
+from .mapper import Mapper
+from .sam import records_to_sam
 
 # anchor-count buckets of the global chain launches (reference semantics)
 N_BUCKETS = (512, 2048, 8192)
@@ -44,7 +43,11 @@ class TorchBatchExecutor:
         self.mapper = mapper
         self.device = torch.device(device)
         self.max_device_batch = max_device_batch
-        if device_local_dp and mapper.chain_backend is None:
+        # the finish threads' local DPs merge into shared launches: the
+        # aggregating backend takes the place of the Mapper's per-call one
+        if device_local_dp and (
+                mapper.chain_backend is None
+                or isinstance(mapper.chain_backend, TorchChainBackend)):
             mapper.chain_backend = TorchAggregatingChainBackend(self.device)
         self._owned_fill_aligner = None
         if device_fills and mapper.global_aligner is None:
