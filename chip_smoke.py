@@ -25,7 +25,15 @@ the final line):
      realistic fill jobs against the host aligner's CIGARs, through
      TorchFillAligner and through the in-process fill service
      (AsyncFillAligner) on its default route and on the scan route
-     (VACMAP_TPU_FILL_SCAN=1);
+     (VACMAP_TPU_FILL_SCAN=1); the Myers edit-distance kernel at its three
+     buckets' full widths (genome spans against copies at 5% and 30%
+     error, length ratios to 1.4, some with an N) against its plain
+     version on the card and, on the pairs without N, against the native
+     Myers, all exactly equal; then 1,780 edit jobs through the service's
+     edit kind on both transports (in this process, and a service
+     process of its own behind a FillClient): every routed distance equal
+     to the native one, exactly the oversized, empty-sided and N pairs
+     answered None;
   5. end to end: the port's executor (--backend jax) maps the reads in
      this process; then three CLI processes of their own, each timed
      from its start to its exit: the port's host path (4 fork
@@ -36,7 +44,15 @@ the final line):
      must have the host path's records (SAM columns 1-6) in both port
      deployments, the service must have served jobs, and every kernel of
      a path must have launched on it.  Each deployment's service stats
-     line gives the share of fill jobs the kernels answered.
+     line gives the share of fill jobs the kernels answered.  The executor
+     and the fork pool run once more with VACMAP_TPU_EDIT_DEVICE=1 (the
+     divergence filter's spans go to the Myers kernel through the
+     service's edit kind): same record check, the edit counters printed,
+     and the Myers kernel must have launched on the executor, whose every
+     read asks for distances (the fork pool asks only for reads that found
+     the service at its cap, and then mostly finds the gate shut).  Last,
+     ``python -m vacmap_tpu_torch.prewarm --all`` runs as a process of its
+     own and must exit 0.
   6. asm: one contig of 2 Mb cut from the genome with 0.3% divergence,
      a 2.5 kb deletion and a 5 kb inversion (the streaming chain: about
      20 round-1 blocks of 100 kb) and one of 480 kb with 6% divergence
@@ -61,8 +77,11 @@ too) and the bytes (each input read once, each output written once) over
 3.35 TB/s.  A chain DP's operations are its candidate pairs (j < n_valid
 with an earlier barrier than i, counted from the inputs) at 80 operations
 a pair; a fill's are its cells (t_len x q_len, or t_len x 128 band lanes)
-at 30 operations a cell.  No single PyTorch call computes the chain DP
-or the affine fill with its traceback, so "library" is null.  The line
+at 30 operations a cell; an edit distance's are its text columns times
+its pattern's 64-bit words at the 64-bit integer operations csrc/myers.cu
+spends on a word in a column (counted in the source, asked of the
+library).  No single PyTorch call computes the chain DP, the affine fill
+with its traceback or an edit distance, so "library" is null.  The line
 before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
 CUDA card is visible or the package is not beside this script.
@@ -95,6 +114,7 @@ PEAK_OPS = 67e12      # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 OPS_PER_PAIR = 80     # one pair score of the chain DP (csrc/chain_pair.cuh)
 OPS_PER_CELL = 30     # one cell of the two-piece affine fill
+EDIT_CHILD = "--edit-transport-child"  # this script's own child mode
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
 
@@ -262,6 +282,102 @@ def fill_pairs(rng, gcodes, n, lo, hi, err=0.05, big_indel=0.0,
     return pairs
 
 
+def myers_pairs(rng, gcodes, T, limit, B):
+    """B edit jobs of one bucket (text <= T, pattern <= limit bases): a
+    genome span and its copy at 5% or 30% ONT-like error; every fourth
+    pattern grown by up to 0.4 n of unrelated bases, every fourth text cut
+    to n / 1.4; every sixth pair with an N; the first text of exactly T
+    bases, then a pattern of exactly ``limit`` bases, a one-base pattern, a
+    one-base text, and four texts under T / 2 (the plain version's share
+    at the largest bucket)."""
+    pairs = []
+    for i in range(B):
+        n = T if i == 0 else int(rng.integers(
+            T // 4, T // 2) if 4 <= i < 8 else rng.integers(T // 2, T + 1))
+        st = int(rng.integers(0, len(gcodes) - n))
+        t = gcodes[st : st + n].copy()
+        q = mutate_codes(rng, t, 0.30 if i % 2 else 0.05)
+        if i % 4 == 0:
+            grow = int(rng.integers(0, int(0.4 * n) + 1))
+            q = np.concatenate([q, rng.integers(0, 4, grow, dtype=np.uint8)])
+        elif i % 4 == 2:
+            t = t[: int(n / 1.4)]
+        if i % 6 == 5:
+            (t if i % 12 == 5 else q)[int(rng.integers(0, min(len(t), len(q))))] = 4
+        if i == 1:
+            q = np.resize(q, limit)
+        elif i == 2:
+            q = q[:1]
+        elif i == 3:
+            t = t[:1]
+        pairs.append((t, q[:limit]))
+    return pairs
+
+
+def edit_service_pairs():
+    """(pairs, routable) for the edit-service phase, from the seed alone
+    (the child process makes the same): 1,500 pairs for the small bucket,
+    200 for the middle one, 24 for the large one, then 8 oversized, 8 with
+    an empty side and 40 with an N, shuffled."""
+    rng = np.random.default_rng(SEED + 3)
+    pairs, routable = [], []
+
+    def pair(lo, hi):
+        t = rng.integers(0, 4, int(rng.integers(lo, hi + 1)), dtype=np.uint8)
+        q = mutate_codes(rng, t, 0.30 if rng.random() < 0.3 else 0.05)
+        if rng.random() < 0.25:
+            q = np.concatenate([q, rng.integers(
+                0, 4, int(rng.integers(0, int(0.4 * len(t)) + 1)),
+                dtype=np.uint8)])
+        return t, q
+
+    for lo, hi, k in ((20, 2048, 1500), (2049, 8192, 200), (8193, 20480, 24)):
+        pairs += [pair(lo, hi) for _ in range(k)]
+    routable += [True] * len(pairs)
+    for i in range(8):  # over every bucket: the text, or the pattern
+        t, q = pair(15_000, 20_000)
+        pairs.append((np.resize(t, 20_481), q) if i % 2 else
+                     (t, np.resize(q, 28_673)))
+    for i in range(8):
+        t, q = pair(20, 500)
+        pairs.append((t[:0], q) if i % 2 else (t, q[:0]))
+    for i in range(40):
+        t, q = pair(20, 3000)
+        (t if i % 2 else q)[int(rng.integers(0, min(len(t), len(q))))] = 4
+        pairs.append((t, q))
+    routable += [False] * (len(pairs) - len(routable))
+    order = rng.permutation(len(pairs))
+    return [pairs[i] for i in order], [routable[i] for i in order]
+
+
+def edit_through(client, pairs, chunk=64):
+    """The pairs through ``client.edit_batch`` in requests of ``chunk``."""
+    got = []
+    for c0 in range(0, len(pairs), chunk):
+        got += client.edit_batch(pairs[c0 : c0 + chunk])
+    return got
+
+
+def edit_transport_child(out_path) -> int:
+    """Child mode: the edit-service pairs through a fill service process
+    of its own and a FillClient (this process never sets CUDA up, so the
+    forked service can), results as JSON to ``out_path``."""
+    from vacmap_tpu_torch.parallel import fill_service
+
+    pairs, _ = edit_service_pairs()
+    handle = fill_service.start_fill_server(1, "cuda", force=True)
+    try:
+        t0 = time.perf_counter()
+        got = edit_through(handle.client(0), pairs)
+        dt = time.perf_counter() - t0
+    finally:
+        msg = handle.stop()
+    with open(out_path, "w") as f:
+        json.dump({"dists": got, "seconds": dt, "stop": msg,
+                   "routes": list(handle.edit_routes[:])}, f)
+    return 0 if msg is None else 1
+
+
 def bound(ops, nbytes):
     """(least ms the card could take, which resource sets it)."""
     t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
@@ -396,6 +512,8 @@ def sam_records(path):
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == EDIT_CHILD:
+        return edit_transport_child(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -405,7 +523,7 @@ def main() -> int:
     try:
         from vacmap_tpu_torch import _build, cli, native
         from vacmap_tpu_torch.ops import affine_fill as af
-        from vacmap_tpu_torch.ops import chain
+        from vacmap_tpu_torch.ops import chain, myers
         from vacmap_tpu_torch.parallel import fill_service
     except ImportError as err:
         fail(f"vacmap_tpu_torch is not importable beside this script: {err}")
@@ -413,7 +531,8 @@ def main() -> int:
                "chain_dp_large": chain.chain_scores_batch_warm,
                "fill_full": af.fill_rowruns,
                "fill_banded": af.fill_rowruns_banded,
-               "fill_scan": af.fill_traceback}
+               "fill_scan": af.fill_traceback,
+               "myers": myers.myers_distances}
 
     def reset_launches():
         for w in kernels.values():
@@ -670,6 +789,56 @@ def main() -> int:
     except Exception as err:  # noqa: BLE001
         fail(f"fill phase raised: {err!r}")
 
+    ops_word_step = int(_build.library().myers_ops_per_word_step())
+
+    def myers_phase(T, Wd, B):
+        """csrc/myers.cu at one bucket's full width against its plain
+        version on the card (one step a text column: at the largest bucket
+        only on the pairs with a text under T / 2) and against the native
+        Myers on the pairs without N."""
+        pairs = myers_pairs(rng, gcodes, T, Wd * 32, B)
+        x = [torch.from_numpy(a).to(dev) for a in myers.pack_jobs(pairs, T, Wd)]
+        launch = lambda: myers.myers_distances(*x)  # noqa: E731
+        launch()  # warm-up
+        wrap_ms, got = wall_ms(torch, launch, 5)
+        ms = device_ms(torch, launch, 3)
+        got = got.cpu().numpy()
+        n_max = T if T <= 8192 else T // 2
+        sub = [i for i, (t, _) in enumerate(pairs) if len(t) <= n_max]
+        idx = torch.as_tensor(sub, device=dev)
+        plain_ms, want = wall_ms(
+            torch, lambda: myers.myers_distances_ref(*(a[idx] for a in x)), 1)
+        err = int(np.abs(got[sub] - want.cpu().numpy()).max())
+        clean = [i for i, (t, q) in enumerate(pairs)
+                 if not ((t == 4).any() or (q == 4).any())]
+        nat = np.array([native.edit_distance_native(*pairs[i]) for i in clean])
+        nat_bad = [i for i, d in zip(clean, nat) if got[i] != d]
+        steps = sum(len(t) * ((len(q) + 63) // 64) for t, q in pairs)
+        b_ms, b_by = bound(steps * ops_word_step,
+                           nbytes(*x, torch.as_tensor(got)))
+        ok = err == 0 and not nat_bad
+        say(f"kernel myers B={B} T={T} pattern<={Wd * 32}: "
+            f"{len(sub)}/{B} pairs held to the plain version (max abs "
+            f"difference {err}), {len(clean)}/{B} without N held to the native "
+            f"Myers ({len(clean) - len(nat_bad)} equal); distances "
+            f"{int(got.min())}..{int(got.max())}; kernel {ms:.3f} ms (wrapper "
+            f"{wrap_ms:.3f} ms) plain {plain_ms:.1f} ms ({len(sub)} pairs) "
+            f"bound {b_ms:.4f} ms ({b_by}, {steps} word-steps at "
+            f"{ops_word_step} operations) [{card}] {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"myers T={T} disagrees with its plain version or the native "
+                 f"Myers (pairs {nat_bad[:10]})")
+        return err, ms, wrap_ms, plain_ms, b_ms, b_by
+
+    try:
+        summary["myers"] = summarize([myers_phase(2048, 128, 256),
+                                      myers_phase(8192, 384, 64),
+                                      myers_phase(20480, 896, 32)])
+    except SystemExit:
+        raise
+    except Exception as err:  # noqa: BLE001
+        fail(f"myers phase raised: {err!r}")
+
     # realistic jobs through the aligner and the service vs the host aligner
     pairs = (fill_pairs(rng, gcodes, 1800, 10, 500, big_indel=0.05, n_frac=0.03)
              + fill_pairs(rng, gcodes, 150, 300, 700)
@@ -719,14 +888,77 @@ def main() -> int:
             fail(f"{route}: a kernel of the route never launched: "
                  f"{path_launches[route]}")
 
+    # the edit kind on both transports, against the native Myers
+    e_pairs, routable = edit_service_pairs()
+    e_want = [native.edit_distance_native(t, q) if r else None
+              for (t, q), r in zip(e_pairs, routable)]
+
+    def held_to_native(what, got, dt, launches):
+        bad = [i for i, (g, w) in enumerate(zip(got, e_want)) if g != w]
+        say(f"{what}: {len(e_pairs) - len(bad)}/{len(e_pairs)} edit jobs as "
+            f"expected ({sum(routable)} routed distances equal to the native "
+            f"Myers, {len(e_pairs) - sum(routable)} oversized, empty-sided or "
+            f"N pairs answered None) in {dt:.3f} s, myers launches "
+            f"{launches} [{card}]")
+        if bad or len(got) != len(e_want):
+            fail(f"{what}: edit jobs {bad[:20]} differ: "
+                 f"{[(got[i], e_want[i]) for i in bad[:20]]}")
+        if launches <= 0:
+            fail(f"{what}: the myers kernel never launched")
+
+    svc = fill_service.async_fill_aligner(
+        dev, edit_aligner=myers.TorchMyersAligner(dev))
+    try:
+        if not svc.ready.wait(300) or svc.core.error is not None:
+            fail(f"edit service: did not come up: {svc.core.error}")
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            got = edit_through(svc, e_pairs)
+        except Exception as err:  # noqa: BLE001
+            fail(f"edit service (AsyncFillAligner) raised: {err!r}")
+        held_to_native("edit service (AsyncFillAligner)", got,
+                       time.perf_counter() - t0, read_launches()["myers"])
+        say(f"edit service (AsyncFillAligner) routes [submitted, sent, capped, "
+            f"governed, not live]: {list(svc.core.edit_routes[:])}")
+        path_launches["edit_service"] = {"myers": read_launches()["myers"]}
+    finally:
+        svc.stop()
+
     # ---- 5. end to end ----------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="vacmap_smoke_") as wd:
+        # the same jobs through a service process of its own (FillClient);
+        # the latency governor is held open, so that no routable job is
+        # bounced: this phase checks answers, not admission
+        child_out = os.path.join(wd, "edit_child.json")
+        child_stats = os.path.join(wd, "edit_child_stats.txt")
+        child_env = dict(os.environ, VACMAP_TPU_EDIT_DEVICE="1",
+                         VACMAP_TPU_FILL_LAT_S="600",
+                         VACMAP_TPU_FILL_STATS=child_stats)
+        dt, p = cli_process([os.path.abspath(__file__), EDIT_CHILD, child_out],
+                            child_env)
+        if p.returncode != 0:
+            fail(f"edit service (FillClient) process exited {p.returncode}: "
+                 f"{p.stderr[-3000:]}")
+        with open(child_out) as f:
+            child = json.load(f)
+        try:
+            child_st, _ = read_stats(child_stats)
+        except (OSError, KeyError, ValueError) as err:
+            fail(f"the edit service process wrote no stats line: {err!r}")
+        held_to_native("edit service (FillClient, a service process)",
+                       child["dists"], child["seconds"],
+                       int(child_st["edit_launches"]))
+        say(f"edit service (FillClient) routes [submitted, sent, capped, "
+            f"governed, not live]: {child['routes']}; process {dt:.3f} s")
         ref = os.path.join(wd, "ref.fa")
         rds = os.path.join(wd, "reads.fa")
         out = {k: os.path.join(wd, f"{k}.sam")
-               for k in ("executor", "host", "executor_timed", "fork_pool")}
+               for k in ("executor", "host", "executor_timed", "fork_pool",
+                         "executor_edit", "fork_pool_edit")}
         stats_path = {k: os.path.join(wd, f"{k}_fill_stats.txt")
-                      for k in ("executor", "fork_pool")}
+                      for k in ("executor", "fork_pool", "executor_edit",
+                                "fork_pool_edit")}
         write_fasta(ref, [("chr1", gcodes)])
         write_fasta(rds, reads)
         t0 = time.perf_counter()
@@ -750,8 +982,9 @@ def main() -> int:
         if rc != 0:
             fail(f"port executor CLI exited {rc}")
 
-        # three CLIs as processes of their own, timed over the same window
-        # (the host path writes the records the port is held to)
+        # five CLIs as processes of their own, timed over the same window
+        # (the host path writes the records the port is held to; the last
+        # two are the executor and the fork pool with the edit route on)
         env = dict(os.environ)
         env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + (
             os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -765,26 +998,44 @@ def main() -> int:
                           "--device", "cuda", "--device-fills", "on", "-o",
                           out["fork_pool"]],
         }
+        for name in ("executor_timed", "fork_pool"):
+            base = name.split("_timed")[0]
+            runs[f"{base}_edit"] = [*runs[name][:-1], out[f"{base}_edit"]]
         secs = {}
         for name, argv in runs.items():
-            penv = dict(env, VACMAP_TPU_FILL_STATS=stats_path[name]) \
-                if name == "fork_pool" else env
+            penv = dict(env)
+            if name in stats_path:
+                penv["VACMAP_TPU_FILL_STATS"] = stats_path[name]
+            if name.endswith("_edit"):
+                penv["VACMAP_TPU_EDIT_DEVICE"] = "1"
             secs[name], p = cli_process(argv, penv)
             if p.returncode != 0:
                 fail(f"{name} CLI process exited {p.returncode}: "
                      f"{p.stderr[-3000:]}")
-            if name == "fork_pool":
+            if name.startswith("fork_pool"):
                 bad = [ln for ln in p.stderr.splitlines()
                        if "degraded" in ln or "device error" in ln]
                 if bad:
                     fail(f"fork-pool service reported: {bad[:5]}")
         stats = {}
-        for path in ("executor", "fork_pool"):
+        for path in stats_path:
             try:
                 stats[path], path_launches[path] = read_stats(stats_path[path])
+                path_launches[path]["myers"] = int(stats[path]["edit_launches"])
             except (OSError, KeyError, ValueError) as err:
                 fail(f"the {path}'s fill service wrote no stats line: {err!r}")
         path_launches["executor"]["chain_dp"] = chain_launches
+
+        # the prewarm entry point, a process of its own
+        prewarm_s, p = cli_process(["-m", "vacmap_tpu_torch.prewarm", "--all"],
+                                   env)
+        if p.returncode != 0 or "prewarm complete" not in p.stdout:
+            fail(f"prewarm process exited {p.returncode}: "
+                 f"{(p.stdout + p.stderr)[-3000:]}")
+        say(f"prewarm --all: exit 0 in {prewarm_s:.3f} s as a process of its "
+            f"own, {sum('kernel' in ln for ln in p.stdout.splitlines()) - 1} "
+            f"kernel shapes launched; it reports: "
+            f"{p.stdout.strip().splitlines()[-1]} [{card}]")
         recs = {k: sam_records(v) for k, v in out.items()}
 
         # ---- 6. asm: two contigs, device chain DPs against the host path
@@ -814,7 +1065,7 @@ def main() -> int:
 
     names = [n for n, _ in reads]
     host_recs = recs["host"]
-    for path in ("executor", "fork_pool"):
+    for path in stats:
         say(f"{path} fill service stats: "
             + " ".join(f"{k}={v}" for k, v in stats[path].items())
             + f" [{card}]")
@@ -826,9 +1077,16 @@ def main() -> int:
             f"{st['not_ready']} before the service was ready, "
             f"{st['host_slot']} in the service's host slot, {st['escal']} "
             f"band escalations")
+        say(f"{path} edit jobs: {st['edit_submitted']} submitted by the "
+            f"divergence filter; {st['edit_sent']} sent to the service "
+            f"({st['edit_served']} answered by the myers kernel in "
+            f"{st['edit_calls']} batches, {st['edit_unrouted']} unrouted); "
+            f"answered None at once: {st['edit_not_live']} no live kernel, "
+            f"{st['edit_capped']} in-flight cap, {st['edit_governed']} latency "
+            f"governor")
         say(f"{path} launches: {path_launches[path]}")
     checks = []
-    for path in ("executor", "fork_pool"):
+    for path in stats:
         port_recs = recs[path]
         aligned = sum(1 for n in names if any(
             not int(r[1]) & 4 for r in port_recs.get(n, [])))
@@ -847,14 +1105,25 @@ def main() -> int:
         f"({secs['executor_timed']:.3f} s, --backend jax; records equal to the "
         f"in-process run: {timed_same}); port fork pool "
         f"{read_bases / secs['fork_pool'] / 1e6:.4f} Mbp/s "
-        f"({secs['fork_pool']:.3f} s, -t 4, one CUDA fill service) [{card}]")
+        f"({secs['fork_pool']:.3f} s, -t 4, one CUDA fill service); with "
+        f"the edit route (VACMAP_TPU_EDIT_DEVICE=1): executor "
+        f"{read_bases / secs['executor_edit'] / 1e6:.4f} Mbp/s "
+        f"({secs['executor_edit']:.3f} s), fork pool "
+        f"{read_bases / secs['fork_pool_edit'] / 1e6:.4f} Mbp/s "
+        f"({secs['fork_pool_edit']:.3f} s) [{card}]")
     need = {"executor": ("chain_dp", "fill_banded", "fill_full"),
-            "fork_pool": ("fill_banded",)}
+            "fork_pool": ("fill_banded",),
+            "executor_edit": ("fill_banded", "myers"),
+            "fork_pool_edit": ("fill_banded",)}
+    for path in ("executor", "fork_pool"):
+        if path_launches[path]["myers"] or int(stats[path]["edit_sent"]):
+            fail(f"{path}: edit jobs reached the service with the switch off: "
+                 f"{stats[path]}")
     for path, ks in need.items():
         if min(path_launches[path][k] for k in ks) <= 0:
             fail(f"{path}: a kernel of the path never launched: "
                  f"{path_launches[path]}")
-    for path in ("executor", "fork_pool"):
+    for path in stats:
         if int(stats[path]["jobs"]) <= 0:
             fail(f"the {path}'s fill service served no jobs")
     for path, aligned, agree in checks:
@@ -909,6 +1178,8 @@ def main() -> int:
                         "vacmap_tpu/ops/affine_pallas.py:423"),
         "fill_scan": ("vacmap_tpu_torch/csrc/fill_scan.cu",
                       "vacmap_tpu/ops/affine_pallas.py:291"),
+        "myers": ("vacmap_tpu_torch/csrc/myers.cu",
+                  "examples/myers_pallas_device.py:151"),
     }
     lines = []
     for k, (src, rep) in replaces.items():

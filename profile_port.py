@@ -5,19 +5,22 @@
 
 On chip_smoke.py's corpus (the 100 Mb benchmark genome and its 272 reads
 of 20 kb), after building the index once:
-  1. throughput: three CLIs, each run as a process of its own and timed
+  1. throughput: five CLIs, each run as a process of its own and timed
      from its start to its exit, in turns for --runs rounds (the order
      reversed every other round): the port's host path (--backend
      numpy --device-fills off), the port's executor (--backend jax) and
      the port's default deployment (-t 4 fork workers, one CUDA fill
-     service process, --device-fills on, its service stats line); and
-     the start-up part of that window: processes that only import torch,
+     service process, --device-fills on, its service stats line), and
+     the last two again with VACMAP_TPU_EDIT_DEVICE=1 (the divergence
+     filter's spans through the service's edit kind to the Myers kernel);
+     and the start-up part of that window: processes that only import torch,
      only set the port up (torch import, CUDA context, kernel library),
      or only import the host path;
   2. breakdown: one more executor run in this process under
      torch.profiler with the stage trace on (--debug): device time by
      kernel and copy, the device's busy share of that run's wall time,
-     and the host stage spans summed over the finishing threads;
+     and the host stage spans summed over the finishing threads; then
+     the same with VACMAP_TPU_EDIT_DEVICE=1 (device time by kernel only);
   3. asm: chip_smoke.py's two contigs (2 Mb streaming, 480 kb per call)
      mapped by `-mode asm` as processes of their own for --runs rounds,
      host path and `--backend jax --device cuda` in turns, then once in
@@ -104,11 +107,15 @@ def main() -> int:
             if p.returncode != 0:
                 cs.fail(f"{side} start-up exited {p.returncode}: {p.stderr[-2000:]}")
             cs.say(f"start-up {side}: {dt:.3f} s [{card}]")
+        for side in ("executor", "fork_pool"):
+            sides[f"{side}_edit"] = sides[side]
         order = [s for r in range(args.runs)
                  for s in (list(sides) if r % 2 == 0 else list(sides)[::-1])]
         stats_path = os.path.join(wd, "fill_stats.txt")
         for k, side in enumerate(order):
             penv = dict(env, VACMAP_TPU_FILL_STATS=stats_path)
+            if side.endswith("_edit"):
+                penv["VACMAP_TPU_EDIT_DEVICE"] = "1"
             dt, p = cs.cli_process(
                 [*sides[side], "-o", os.path.join(wd, f"{side}{k}.sam")], penv)
             if p.returncode != 0:
@@ -132,6 +139,21 @@ def main() -> int:
             wall = time.perf_counter() - t0
         if rc != 0:
             cs.fail(f"profiled port run exited {rc}")
+        spans = trace.summary()
+        trace.enable(False)
+        os.environ["VACMAP_TPU_EDIT_DEVICE"] = "1"
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as edit_prof:
+                t0 = time.perf_counter()
+                rc = cli.main([*common, "--backend", "jax", "--device", "cuda",
+                               "-o", os.path.join(wd, "profiled_edit.sam")])
+                torch.cuda.synchronize()
+                edit_wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("VACMAP_TPU_EDIT_DEVICE", None)
+        if rc != 0:
+            cs.fail(f"profiled port run with the edit route exited {rc}")
 
         contigs = cs.asm_contigs(np.random.default_rng(cs.SEED + 2), gcodes)
         ctg = os.path.join(wd, "contigs.fa")
@@ -171,7 +193,15 @@ def main() -> int:
         cs.say(f"  device {us / 1e3:10.3f} ms  n={n:6d}  {key[:90]}")
     cs.say(f"device time (kernels and copies) {busy:.1f} ms of wall "
            f"{wall * 1e3:.1f} ms: busy share {busy / (wall * 1e3):.4f}")
-    cs.say("host stage spans (summed over threads):\n" + trace.summary())
+    cs.say("host stage spans (summed over threads):\n" + spans)
+    rows = sorted(device_events(torch, edit_prof), key=lambda r: -r[2])
+    busy = sum(us for _, _, us in rows) / 1e3
+    cs.say(f"profiled in-process executor run with the edit route: wall "
+           f"{edit_wall:.3f} s [{card}]")
+    for key, n, us in rows[:8]:
+        cs.say(f"  device {us / 1e3:10.3f} ms  n={n:6d}  {key[:90]}")
+    cs.say(f"device time (kernels and copies) {busy:.1f} ms of wall "
+           f"{edit_wall * 1e3:.1f} ms: busy share {busy / (edit_wall * 1e3):.4f}")
     for line in asm_lines:
         cs.say(line)
     rows = sorted(device_events(torch, asm_prof), key=lambda r: -r[2])

@@ -299,3 +299,68 @@ def test_asm_cli_on_card_matches_host_path(dev, tmp_path):
 
     assert body(card) == body(host)
     assert sum(not l.startswith("@") for l in body(host)) >= 2
+
+
+def _myers_pairs(rng, T, Wd, B):
+    """Texts up to T bases with copies at 5% or 30% substitutions and
+    indels, some patterns grown to 1.4 n, one of exactly 32 Wd bases, one
+    of one base, a one-base text, and every seventh pair with an N."""
+    pairs = []
+    for i in range(B):
+        n = int(rng.integers(T // 4, T + 1)) if i else T
+        t = rng.integers(0, 4, n).astype(np.uint8)
+        keep = rng.random(n) >= (0.02 if i % 2 else 0.1)
+        q = t[keep].copy()
+        m = rng.random(len(q)) < (0.03 if i % 2 else 0.2)
+        q[m] = rng.integers(0, 4, int(m.sum()))
+        if i % 5 == 0:
+            grow = max(min(int(0.4 * n), Wd * 32 - len(q)), 0)
+            q = np.concatenate([q, rng.integers(0, 4, grow).astype(np.uint8)])
+        if i % 7 == 3:
+            q[len(q) // 2] = 4
+        if i == 1:
+            q = np.resize(q, Wd * 32)
+        if i == 2:
+            q = q[:1]
+        if i == 3:
+            t = t[:1]
+        pairs.append((t, q[: Wd * 32]))
+    return pairs
+
+
+@pytest.mark.parametrize("T,Wd,B,n_plain", [(2048, 128, 96, 96),
+                                            (8192, 384, 48, 12),
+                                            (20480, 896, 24, 3)])
+def test_myers_kernel_matches_plain_and_native(dev, T, Wd, B, n_plain):
+    """csrc/myers.cu at the three buckets' full widths: equal to its plain
+    version (on the first n_plain pairs: the plain version is one step a
+    text column) and, on the pairs without N, to the native Myers."""
+    from vacmap_tpu_torch import native
+    from vacmap_tpu_torch.ops import myers
+
+    rng = np.random.default_rng(T)
+    pairs = _myers_pairs(rng, T, Wd, B)
+    x = [torch.from_numpy(a).to(dev) for a in myers.pack_jobs(pairs, T, Wd)]
+    before = myers.myers_distances.launches
+    got = myers.myers_distances(*x)
+    torch.cuda.synchronize()
+    assert myers.myers_distances.launches == before + 1
+    got = got.cpu().numpy()
+    want = myers.myers_distances_ref(*(a[:n_plain] for a in x)).cpu().numpy()
+    assert np.array_equal(got[:n_plain], want)
+    clean = [i for i, (t, q) in enumerate(pairs)
+             if not ((t == 4).any() or (q == 4).any())]
+    assert len(clean) < B
+    assert [int(got[i]) for i in clean] == [
+        native.edit_distance_native(*pairs[i]) for i in clean]
+    ta = myers.TorchMyersAligner(dev)
+    assert ta.distance_batch(pairs) == got.tolist()
+
+
+def test_prewarm_entry_on_card(dev, capsys):
+    from vacmap_tpu_torch import prewarm
+
+    assert prewarm.main(["--all"]) == 0
+    out = capsys.readouterr().out
+    assert "kernel library" in out and "myers kernel (T=20480" in out
+    assert "asm stream chain kernel (N=32768)" in out

@@ -220,7 +220,8 @@ def test_torch_cli_without_a_card_exits_nonzero(world, tmp_path):
 @pytest.mark.parametrize("argv", [
     ["-mode", "asm", "--num-processes", "2"],
     ["-mode", "H", "--num-processes", "2"],
-    ["-mode", "H", "--coordinator", "localhost:1234"], ["--prewarm", "-mode", "H"],
+    ["-mode", "H", "--coordinator", "localhost:1234"],
+    ["-mode", "L", "--num-processes", "3", "--process-id", "1"],
 ])
 def test_torch_cli_refuses_unported_paths(argv, tmp_path):
     from vacmap_tpu_torch import cli as port_cli
@@ -228,6 +229,84 @@ def test_torch_cli_refuses_unported_paths(argv, tmp_path):
     with pytest.raises(SystemExit, match="not yet ported"):
         port_cli.main(["-ref", str(tmp_path / "r.fa"), "-read",
                        str(tmp_path / "q.fa"), "--device", "cpu", *argv])
+
+
+def test_torch_cli_prewarm_runs_on_the_cpu_and_needs_a_card_otherwise(capsys):
+    """--prewarm is ported: with --device cpu it builds the host library,
+    runs every wrapper's plain version once and exits 0; with --device
+    cuda (the default) and no card it fails with the no-card error."""
+    import torch
+
+    from vacmap_tpu_torch import DeviceKernelError
+    from vacmap_tpu_torch import cli as port_cli
+
+    assert port_cli.main(["--prewarm", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    for word in ("host library", "fill kernel", "scan fill kernel",
+                 "myers kernel (T=20480", "chain kernel", "asm stream chain",
+                 "prewarm complete"):
+        assert word in out, word
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for argv in (["--prewarm"], ["--prewarm", "--device", "cuda"]):
+        with pytest.raises(DeviceKernelError, match="no CUDA card"):
+            port_cli.main(argv)
+
+
+def test_torch_prewarm_module_entry(tmp_path):
+    """python -m vacmap_tpu_torch.prewarm: the flags select the families."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    run = lambda *a: subprocess.run(  # noqa: E731
+        [sys.executable, "-m", "vacmap_tpu_torch.prewarm", *a], cwd=tmp_path,
+        env=env, capture_output=True, text=True, timeout=300)
+    r = run("--chain", "--device", "cpu")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "chain kernel (N=512)" in r.stdout and "fill kernel" not in r.stdout
+    r = run("--fills", "--asm", "--device", "cpu")
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "myers kernel" in r.stdout and "asm stream chain" in r.stdout
+    assert "chain kernel (N=512)" not in r.stdout
+    import torch
+
+    if not torch.cuda.is_available():
+        r = run("--all")
+        assert r.returncode != 0 and "no CUDA card" in r.stderr
+
+
+def test_torch_cli_edit_route_matches_host_cli(world, tmp_path):
+    """VACMAP_TPU_EDIT_DEVICE=1: the executor's divergence filter takes
+    exact distances from the service's edit kind (the plain version on
+    --device cpu), and the SAM still equals vacmap-tpu --backend numpy."""
+    from vacmap_tpu import cli as host_cli
+
+    genome, idx, reads = world
+    ref = tmp_path / "ref.fa"
+    ref.write_text(f">e1\n{genome['e1']}\n")
+    rd = tmp_path / "reads.fa"
+    rd.write_text("".join(f">{n}\n{s}\n" for n, s in reads[:3]))
+    out_port = tmp_path / "port.sam"
+    out_host = tmp_path / "host.sam"
+    stats = tmp_path / "stats.txt"
+    common = ["-ref", str(ref), "-read", str(rd), "-mode", "H", "--nowriteindex"]
+    r = _port_cli_process(common + ["--backend", "jax", "--device", "cpu",
+                                    "-o", str(out_port)], tmp_path,
+                          timeout=600, VACMAP_TPU_FILL_STATS=str(stats),
+                          VACMAP_TPU_EDIT_DEVICE="1")
+    assert r.returncode == 0, r.stderr[-3000:]
+    st = dict(kv.split("=", 1) for kv in stats.read_text().split())
+    assert int(st["edit_served"]) >= 3 and st["edit_not_live"] == "0"
+    assert int(st["edit_submitted"]) == (int(st["edit_sent"])
+                                         + int(st["edit_capped"]))
+    assert host_cli.main(common + ["--backend", "numpy", "-t", "1",
+                                   "--device-fills", "off",
+                                   "-o", str(out_host)]) == 0
+
+    def body(p):
+        return [l for l in p.read_text().splitlines() if not l.startswith("@PG")]
+
+    assert sum(not l.startswith("@") for l in body(out_host)) >= 3
+    assert body(out_port) == body(out_host)
 
 
 def test_torch_executor_raises_device_errors(world, port_mapper):

@@ -581,3 +581,392 @@ def test_gate_refusals_are_counted_by_cause(rng):
     assert h[0] == h2[0] == "hostq"
     assert c._routes[:] == [5, 0, 2, 3]
     assert len(c.wait(h)) == 2 and len(c.wait(h2)) == 3
+
+
+# ---------------------------------------------------------------------------
+# the edit job kind (exact edit distances for the divergence filter)
+# ---------------------------------------------------------------------------
+
+EDIT_BUCKETS = ((256, 8), (512, 24))
+
+
+def _edit_aligner(device="cpu"):
+    from vacmap_tpu_torch.ops.myers import TorchMyersAligner
+
+    return TorchMyersAligner(device, buckets=EDIT_BUCKETS)
+
+
+def _edit_pairs(rng):
+    """Routed pairs of both buckets, then the unroutable ones: oversized
+    text, oversized pattern, an empty side, a code 4 on either side."""
+    routed = [_rand_pair(rng, lo=3, hi=250) for _ in range(14)]
+    routed += [_rand_pair(rng, lo=300, hi=500) for _ in range(5)]
+    t = rng.integers(0, 4, 200).astype(np.uint8)
+    tn = t.copy()
+    tn[7] = 4
+    unroutable = [
+        (rng.integers(0, 4, 600).astype(np.uint8), t),
+        (t, rng.integers(0, 4, 24 * 32 + 1).astype(np.uint8)),
+        (np.zeros(0, np.uint8), t), (t, np.zeros(0, np.uint8)),
+        (tn, t), (t, tn),
+    ]
+    return routed, unroutable
+
+
+def _native_dists(pairs):
+    from vacmap_tpu.native import edit_distance_native
+
+    return [edit_distance_native(t, q) for t, q in pairs]
+
+
+def test_edit_kind_in_process(rng, monkeypatch, tmp_path):
+    """Routed distances are exact, exactly the unroutable jobs come back
+    None, and the stats line counts the edit kind."""
+    stats = tmp_path / "stats.txt"
+    monkeypatch.setenv("VACMAP_TPU_FILL_STATS", str(stats))
+    routed, unroutable = _edit_pairs(rng)
+    pairs = routed[:10] + unroutable + routed[10:]
+    svc = _svc(edit_aligner=_edit_aligner())
+    try:
+        assert svc.core.edit_ready == frozenset(EDIT_BUCKETS)
+        got = svc.edit_batch(pairs)
+        assert got[:10] + got[16:] == _native_dists(routed)
+        assert got[10:16] == [None] * 6
+        assert svc.edit_batch([]) == [] and svc._pending_n == 0
+        # fills and edits in flight together
+        fills = [_rand_pair(rng) for _ in range(6)]
+        h = svc.submit(fills, eqx=True)
+        assert svc.edit_batch(routed[:3]) == _native_dists(routed[:3])
+        assert [g.cigar for g in svc.wait(h)] == _cigars(fills, True)
+    finally:
+        assert svc.stop() is None
+    st = dict(kv.split("=", 1) for kv in stats.read_text().split())
+    n = len(pairs) + 3
+    assert (st["edit_submitted"], st["edit_sent"], st["edit_not_live"],
+            st["edit_capped"], st["edit_governed"]) == (str(n), str(n), "0",
+                                                        "0", "0")
+    assert (st["edit_served"], st["edit_unrouted"]) == (str(n - 6), "6")
+    assert int(st["edit_calls"]) >= 3 and st["edit_launches"] == "0"
+    assert (st["submitted"], st["jobs"]) == ("6", "6")
+
+
+def test_edit_batch_short_circuits_while_no_kernel_is_live(rng, monkeypatch):
+    """No edit aligner (the default deployment, VACMAP_TPU_EDIT_DEVICE
+    unset): all None at once, nothing queued, counted as not live."""
+    monkeypatch.delenv("VACMAP_TPU_EDIT_DEVICE", raising=False)
+    svc = _svc()
+    try:
+        assert svc.core.edit_aligner is None and not svc.core.edit_ready
+        pairs = [_rand_pair(rng) for _ in range(4)]
+        assert svc.edit_batch(pairs) == [None] * 4
+        assert svc.req_q.empty() and svc._pending_n == 0
+        assert svc.core.edit_routes[:] == [4, 0, 0, 0, 4]
+    finally:
+        svc.stop()
+
+
+def test_make_edit_aligner_reads_the_switch(monkeypatch):
+    from vacmap_tpu_torch.ops.myers import DEFAULT_BUCKETS, TorchMyersAligner
+
+    monkeypatch.delenv("VACMAP_TPU_EDIT_DEVICE", raising=False)
+    assert fs._make_edit_aligner(torch.device("cpu")) is None
+    monkeypatch.setenv("VACMAP_TPU_EDIT_DEVICE", "1")
+    ea = fs._make_edit_aligner(torch.device("cpu"))
+    assert isinstance(ea, TorchMyersAligner)
+    assert ea.device == torch.device("cpu") and ea.buckets == DEFAULT_BUCKETS
+    svc = _svc()
+    try:
+        assert svc.core.edit_ready == frozenset(DEFAULT_BUCKETS)
+        t = np.array([0, 1, 2, 3, 0, 1], np.uint8)
+        assert svc.edit_batch([(t, t[:4]), (t, t)]) == [2, 0]
+    finally:
+        svc.stop()
+
+
+def test_edit_cap_is_counted_in_process(rng, monkeypatch):
+    monkeypatch.setattr(fs, "MAX_INFLIGHT_JOBS", 0)
+    svc = _svc(edit_aligner=_edit_aligner())
+    try:
+        assert svc.edit_batch([_rand_pair(rng) for _ in range(3)]) == [None] * 3
+        assert svc.core.edit_routes[:] == [3, 0, 3, 0, 0]
+        assert svc.req_q.empty()
+    finally:
+        svc.stop()
+
+
+class _RaisingEditAligner:
+    buckets = EDIT_BUCKETS
+    shape_b = {256: 8, 512: 8}
+
+    def prewarm(self, buckets=None):
+        pass
+
+    def dispatch_jobs(self, jobs, T, Wd):
+        raise RuntimeError("injected edit launch failure")
+
+
+def test_raising_edit_aligner_surfaces_as_device_kernel_error(rng):
+    svc = _svc(edit_aligner=_RaisingEditAligner())
+    try:
+        with pytest.raises(DeviceKernelError, match="injected edit launch"):
+            svc.edit_batch([_rand_pair(rng, hi=100) for _ in range(3)])
+        with pytest.raises(DeviceKernelError):
+            svc.edit_batch([_rand_pair(rng)])
+        with pytest.raises(DeviceKernelError):
+            svc.submit([_rand_pair(rng)], eqx=True)
+    finally:
+        svc.stop()
+
+
+def _small_make_edit_aligner(device):
+    return _edit_aligner(device)
+
+
+def _raising_make_edit_aligner(device):
+    return _RaisingEditAligner()
+
+
+def test_edit_kind_cross_process(rng, monkeypatch):
+    monkeypatch.setattr(fs, "_make_edit_aligner", _small_make_edit_aligner)
+    handle = start_fill_server(2, "cpu", prewarm=False, ready_timeout=60)
+    try:
+        assert handle.edit_val.value == 1
+        c0, c1 = handle.client(0), handle.client(1)
+        routed, unroutable = _edit_pairs(rng)
+        pairs = unroutable[:3] + routed + unroutable[3:]
+        got = c0.edit_batch(pairs)
+        assert got[3:-3] == _native_dists(routed)
+        assert got[:3] == [None] * 3 and got[-3:] == [None] * 3
+        fills = [_rand_pair(rng) for _ in range(5)]
+        # the plain version's round trip is slow here; keep the latency
+        # governor open for the requests below
+        handle.lat_sh.value = 0.0
+        h = c1.submit(fills, eqx=True)
+        handle.lat_sh.value = 0.0
+        assert c1.edit_batch(routed[:4]) == _native_dists(routed[:4])
+        assert [g.cigar for g in c1.wait(h, timeout=60)] == _cigars(fills, True)
+        assert handle.pending_ctr.value == 0
+        n = len(pairs) + 4
+        assert handle.edit_routes[:] == [n, n, 0, 0, 0]
+        assert handle.routes[:] == [5, 5, 0, 0]
+        assert handle.error() is None
+    finally:
+        assert handle.stop() is None
+
+
+def test_edit_kind_cross_process_not_live_by_default(rng, monkeypatch):
+    monkeypatch.delenv("VACMAP_TPU_EDIT_DEVICE", raising=False)
+    handle = start_fill_server(1, "cpu", prewarm=False, ready_timeout=60)
+    try:
+        assert handle.edit_val.value == 0
+        c = handle.client(0)
+        assert c.edit_batch([_rand_pair(rng) for _ in range(3)]) == [None] * 3
+        assert handle.edit_routes[:] == [3, 0, 0, 0, 3]
+        assert handle.pending_ctr.value == 0
+    finally:
+        assert handle.stop() is None
+
+
+def test_cross_process_edit_error_reaches_client_and_parent(rng, monkeypatch):
+    monkeypatch.setattr(fs, "_make_edit_aligner", _raising_make_edit_aligner)
+    handle = start_fill_server(1, "cpu", prewarm=False, ready_timeout=60)
+    try:
+        c = handle.client(0)
+        with pytest.raises(DeviceKernelError, match="injected edit launch"):
+            c.edit_batch([_rand_pair(rng, hi=100) for _ in range(3)])
+        assert "injected edit launch" in handle.error()
+        with pytest.raises(DeviceKernelError):
+            c.edit_batch([_rand_pair(rng)])
+    finally:
+        assert "injected edit launch" in handle.stop()
+
+
+def _silent_edit_client(pending):
+    import multiprocessing as mp
+
+    c = _silent_client(pending)
+    c._edit_val = mp.get_context("fork").Value("i", 1)
+    return c
+
+
+def test_late_edit_response_raises_instead_of_none(rng):
+    """A sent edit request with no answer within the wait's bound raises;
+    it is not handed back as None for the host ladder."""
+    import multiprocessing as mp
+
+    pending = mp.get_context("fork").Value("l", 0)
+    c = _silent_edit_client(pending)
+    with pytest.raises(DeviceKernelError, match="no edit response"):
+        c.edit_batch([_rand_pair(rng) for _ in range(3)], timeout=0.3)
+    assert pending.value == 0
+    assert c._edit_routes[:] == [3, 3, 0, 0, 0]
+
+
+def test_edit_gate_refusals_are_counted_by_cause(rng):
+    import multiprocessing as mp
+
+    pending = mp.get_context("fork").Value("l", fs.MAX_INFLIGHT_JOBS)
+    c = _silent_edit_client(pending)
+    assert c.edit_batch([_rand_pair(rng) for _ in range(2)]) == [None] * 2
+    c._lat_sh.value = 10 * fs.MAX_LAT_S
+    assert c.edit_batch([_rand_pair(rng) for _ in range(3)]) == [None] * 3
+    c._edit_val.value = 0
+    assert c.edit_batch([_rand_pair(rng) for _ in range(4)]) == [None] * 4
+    assert c._edit_routes[:] == [9, 0, 2, 3, 4]
+    assert c._routes[:] == [0, 0, 0, 0] and c.req_q.empty()
+
+
+# ---------------------------------------------------------------------------
+# the divergence filter's edit route
+# ---------------------------------------------------------------------------
+
+
+class _EditClient:
+    """edit_batch through the plain-version aligner, None for pairs over
+    its buckets (as the service answers)."""
+
+    def __init__(self, raises=None):
+        from vacmap_tpu_torch.ops.myers import TorchMyersAligner
+
+        self.ta = TorchMyersAligner("cpu", buckets=((2048, 128),))
+        self.calls = 0
+        self.raises = raises
+
+    def edit_batch(self, pairs):
+        self.calls += 1
+        if self.raises is not None:
+            raise self.raises
+        return [None if d < 0 or not len(t) or not len(q) else d
+                for d, (t, q) in zip(self.ta.distance_batch(pairs), pairs)]
+
+
+def _junk_read(genome, rng, st):
+    """4 kb of the genome, 1.6 kb that matches nothing between two 100 bp
+    matching ends, 3 kb more of the genome: the middle segment's span
+    diverges beyond the filter's ratio."""
+    junk = "".join("ACGT"[int(rng.integers(4))] for _ in range(1600))
+    mid = genome[st + 4000 : st + 6000]
+    return (genome[st : st + 4000] + mid[:100] + junk + mid[-100:]
+            + genome[st + 6000 : st + 9000])
+
+
+def _refine_inputs(small_genome, rng, n_reads=4):
+    """The (args, kwargs) of every refine_chain call the port's mapper
+    makes on a few reads, half of them with a junk middle."""
+    from vacmap_tpu_torch.config import AlignerConfig as PortConfig
+    from vacmap_tpu_torch.index import ReferenceIndex as PortIndex
+    from vacmap_tpu_torch.pipeline import extend
+    from vacmap_tpu_torch.pipeline import mapper as mapper_mod
+
+    m = mapper_mod.Mapper(PortIndex.build(small_genome, k=15, w=10),
+                   PortConfig(mode="H"))
+    genome = small_genome["c1"]
+    calls = []
+    real = extend.refine_chain
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    mapper_mod.refine_chain = spy
+    try:
+        for i in range(n_reads):
+            st = int(rng.integers(0, len(genome) - 9000))
+            seq = (_junk_read(genome, rng, st) if i % 2
+                   else genome[st : st + 7000])
+            m.map_read(f"d{i}", seq)
+    finally:
+        mapper_mod.refine_chain = real
+    assert calls
+    return calls
+
+
+def test_refine_chain_keeps_the_same_segments_with_the_edit_client(
+        small_genome, rng):
+    """The filter's decisions are exact either way: refine_chain with an
+    edit client returns the segments and records it returns without."""
+    from vacmap_tpu_torch.pipeline import extend
+
+    seen = 0
+    for a, kw in _refine_inputs(small_genome, rng):
+        kw = {k: v for k, v in kw.items() if k != "global_aligner"}
+        want = extend.refine_chain(*a, **kw)
+        client = _EditClient()
+        fill = extend._host_global_batch
+
+        class Both:  # a global aligner that also answers edit_batch
+            edit_batch = staticmethod(client.edit_batch)
+            __call__ = staticmethod(lambda pairs, eqx=False: fill(pairs, eqx))
+
+        got = extend.refine_chain(*a, **kw, global_aligner=Both())
+        assert client.calls >= 1
+        assert got == want
+        seen += len(want[0])
+    assert seen >= 4
+
+
+def test_divergence_filter_decides_alike_with_the_edit_client(small_genome,
+                                                              rng):
+    """divergence_filter on a read's rebuilt segments: the same segments
+    are kept with exact device distances as on the host ladder, a dropped
+    junk segment included."""
+    from vacmap_tpu_torch.pipeline import extend
+
+    calls = []
+    real = extend.divergence_filter
+
+    def spy(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    extend.divergence_filter = spy
+    try:
+        for a, kw in _refine_inputs(small_genome, rng, n_reads=6):
+            kw = {k: v for k, v in kw.items() if k != "global_aligner"}
+            real_refine = extend.refine_chain(*a, **kw)
+            assert real_refine is not None
+    finally:
+        extend.divergence_filter = real
+    assert calls
+    kept = dropped = 0
+    for a, kw in calls:
+        kw = {k: v for k, v in kw.items()
+              if k not in ("edit_client", "window_cache")}
+        segs, codes, rc_codes, *rest = a
+        # the read as it is, and with every other base replaced (about
+        # 37% divergence, over the mode's 0.2): those spans are dropped
+        noisy = codes.copy()
+        noisy[::2] = rng.integers(0, 4, len(noisy[::2])).astype(codes.dtype)
+        for rd, rc in ((codes, rc_codes), (noisy, (3 - noisy)[::-1])):
+            args = (segs, rd, rc, *rest)
+            want = real(*args, **kw, edit_client=None, window_cache={})
+            client = _EditClient()
+            got = real(*args, **kw, edit_client=client, window_cache={})
+            assert client.calls == 1 and got == want
+            kept += len(want)
+            dropped += len(segs) - len(want)
+    assert kept >= 1 and dropped >= 1
+
+
+def test_device_error_in_edit_batch_ends_refine_chain(small_genome, rng):
+    """A DeviceKernelError from edit_batch passes through the divergence
+    filter (any other error there falls back to the host ladder)."""
+    from vacmap_tpu_torch.pipeline import extend
+
+    a, kw = _refine_inputs(small_genome, rng, n_reads=1)[0]
+    kw = {k: v for k, v in kw.items() if k != "global_aligner"}
+    want = extend.refine_chain(*a, **kw)
+    fill = extend._host_global_batch
+
+    def aligner(client):
+        class Both:
+            edit_batch = staticmethod(client.edit_batch)
+            __call__ = staticmethod(lambda pairs, eqx=False: fill(pairs, eqx))
+        return Both()
+
+    with pytest.raises(DeviceKernelError, match="injected"):
+        extend.refine_chain(*a, **kw, global_aligner=aligner(
+            _EditClient(raises=DeviceKernelError("injected device fault"))))
+    soft = _EditClient(raises=ValueError("a host-side error"))
+    assert extend.refine_chain(*a, **kw, global_aligner=aligner(soft)) == want
+    assert soft.calls >= 1

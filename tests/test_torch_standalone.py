@@ -1,5 +1,5 @@
 """vacmap_tpu_torch stands alone: no file of the port, nor the scripts
-that drive it, imports ``vacmap_tpu`` or ``jax``; its command line runs
+that drive it, imports ``vacmap_tpu``, ``jax`` or ``examples/``; its command line runs
 with both unimportable; its native host library builds under ``build/``
 and never touches the JAX package's."""
 
@@ -14,7 +14,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "vacmap_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "profile_port.py"]
-FORBIDDEN = ("vacmap_tpu", "jax", "jaxlib")
+FORBIDDEN = ("vacmap_tpu", "jax", "jaxlib", "examples", "myers_pallas_device")
 
 
 def _imports(path):

@@ -81,7 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                      help="force the bounded-memory external-sort "
                           "index build (auto for references >= 1 Gb)")
     out.add_argument("--prewarm", action="store_true",
-                     help="not yet ported")
+                     help="build the kernel and host libraries and launch "
+                          "every kernel once per shape family on --device, "
+                          "then exit")
     par = p.add_argument_group("Alignment Parameters")
     par.add_argument("-t", type=int, default=4, help="Threads (default 4)")
     par.add_argument("-k", type=int, default=15)
@@ -539,7 +541,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     raw = list(sys.argv[1:] if argv is None else argv)
     if "--prewarm" in raw:
-        raise SystemExit(f"ERROR: --prewarm is {NOT_PORTED}")
+        # build the libraries and launch every kernel once per shape
+        # family on --device, then exit (python -m vacmap_tpu_torch.prewarm)
+        from . import prewarm
+
+        dev = raw[raw.index("--device") + 1] if "--device" in raw[:-1] else "cuda"
+        return prewarm.main(["--all", "--device", dev])
     args = build_parser().parse_args(raw)
     what = _unported(args)
     if what is not None:

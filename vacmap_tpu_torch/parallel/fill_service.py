@@ -34,9 +34,16 @@ them beside the jobs the kernels served.  A device error is not routed
 to the host: the waiting client raises DeviceKernelError, and the
 cross-process service reports it to its parent.  Neither is a late
 response: a request sent to the service is waited for, and one with no
-answer within the wait's bound raises.  The reference's edit-distance
-job kind (a permanent stub there) is not ported: clients' ``edit_batch``
-answers all-None at once.
+answer within the wait's bound raises.
+
+A second job kind, exact edit distances for the divergence filter
+(``edit_batch``), runs when the service was given an edit aligner
+(``ops/myers.py``; ``VACMAP_TPU_EDIT_DEVICE=1`` plugs it in, the default
+deployment has none and ``edit_batch`` answers all-None at once).  Edit
+jobs are routed largest bucket first; a job over every bucket, with an
+empty side or with a code 4 comes back as None, which the caller
+resolves on its host ladder.  Edit requests pass the same gate, raise
+the same errors and have route counters of their own (``edit_routes``).
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from ..ops.affine_fill import (
     rowruns_to_packed,
 )
 from ..ops.affine_ref import AlignResult
+from ..ops.myers import TorchMyersAligner, myers_distances
 from ..pipeline.extend import HostBatchFillAligner, _host_global_batch
 
 log = logging.getLogger("vacmap_tpu_torch")
@@ -106,6 +114,10 @@ STARTING, SERVING, DECLINED, FAILED = 0, 1, 2, 3
 # governor (governed); the rest were submitted before the service was
 # ready or after a calibrated no-go
 SUBMITTED, OFFLOADED, CAPPED, GOVERNED = range(4)
+# the edit kind's counters (a second shared array, same slots) and one
+# more: jobs answered None at once because no edit kernel is live (no
+# edit aligner, before ready, after a calibrated no-go)
+NOT_LIVE = 4
 WAIT_S = 600.0  # bound on one wait for the service's response
 FILL_KERNELS = {"fill_full": affine_fill.fill_rowruns,
                 "fill_banded": affine_fill.fill_rowruns_banded,
@@ -115,6 +127,16 @@ FILL_KERNELS = {"fill_full": affine_fill.fill_rowruns,
 def launch_counts() -> Dict[str, int]:
     """Launches of the fill kernels in this process so far."""
     return {k: w.launches for k, w in FILL_KERNELS.items()}
+
+
+def _make_edit_aligner(device) -> Optional[TorchMyersAligner]:
+    """The service's edit aligner: none by default, as in the reference
+    (``edit_batch`` then answers all-None and the divergence filter keeps
+    to its window-bound pass and host ladder); the Myers kernel's aligner
+    on ``device`` under ``VACMAP_TPU_EDIT_DEVICE=1``."""
+    if os.environ.get("VACMAP_TPU_EDIT_DEVICE") == "1":
+        return TorchMyersAligner(device)
+    return None
 
 
 def _error_text(err: BaseException) -> str:
@@ -176,13 +198,26 @@ class _ServerCore:
     ``on_error(msg)`` is called once, at the first failed dispatch or
     download; every request of that batch, and of every later one, is
     answered with an error slot.  ``routes`` holds the clients' route
-    counters (SUBMITTED, OFFLOADED, CAPPED, GOVERNED)."""
+    counters (SUBMITTED, OFFLOADED, CAPPED, GOVERNED), ``edit_routes``
+    those of the edit kind (and NOT_LIVE).
+
+    ``edit_aligner`` (``buckets`` of (T, Wd), ``shape_b``, ``prewarm``,
+    ``dispatch_jobs(jobs, T, Wd)`` -> handle, ``fetch(handle)``) serves
+    requests whose fifth field is "edit"; ``edit_ready`` holds the
+    buckets that take traffic and ``edit_ready_cb`` is called when it
+    is filled."""
 
     def __init__(self, aligner, buckets=DEFAULT_BUCKETS,
                  max_wait_ms=MAX_WAIT_MS, force: bool = False,
-                 n_clients: int = 1, on_error=None, routes=None):
+                 n_clients: int = 1, on_error=None, routes=None,
+                 edit_aligner=None, edit_ready_cb=None, edit_routes=None):
         self.aligner = aligner
         self.routes = routes if routes is not None else mp.Array("q", 4)
+        self.edit_aligner = edit_aligner
+        self.edit_ready: frozenset = frozenset()
+        self._edit_ready_cb = edit_ready_cb
+        self.edit_routes = (edit_routes if edit_routes is not None
+                            else mp.Array("q", 5))
         # calibrated auto: offload pays only when the device's best-case
         # pipelined fill rate beats the whole host's fill rate; measured
         # at start-up.  force=True (--device-fills on) skips the gate.
@@ -209,19 +244,39 @@ class _ServerCore:
         self._stats_lock = threading.Lock()
         self._stats = {"calls": 0, "reqs": 0, "jobs": 0, "fetch_s": 0.0,
                        "disp_cpu": 0.0, "dl_cpu": 0.0, "escal": 0,
-                       "host_slot": 0}
-        self._launch0 = launch_counts()  # reset once traffic may start
+                       "host_slot": 0, "edit_calls": 0, "edit_served": 0,
+                       "edit_unrouted": 0}
+        self._mark_launches()  # reset once traffic may start
+
+    def _mark_launches(self):
+        self._launch0 = launch_counts()
+        self._edit_launch0 = myers_distances.launches
 
     def prewarm(self):
         """One warm launch per route, then (unless forced) the calibrated
         go/no-go: ``competitive`` False means the device cannot beat the
         host's own fill kernels here, and the deployment stays on host
-        fills."""
+        fills.  The edit buckets are warmed and marked ready last."""
         for b in self.band_ids + self.buckets:
             self.aligner.prewarm(batch_sizes=(self.shape_b[b],), buckets=(b,))
         if not self.force:
             self.competitive = self._calibrate()
-        self._launch0 = launch_counts()
+        self.ready_edit(warm=True)
+        self._mark_launches()
+
+    def ready_edit(self, warm: bool) -> None:
+        """Open the edit aligner's buckets to traffic (after one warm
+        launch each with ``warm``).  There is nothing to compile per
+        shape, so this happens before the service reports ready, not in
+        idle gaps as in the reference."""
+        ea = self.edit_aligner
+        if ea is None:
+            return
+        if warm:
+            ea.prewarm()
+        self.edit_ready = frozenset(ea.buckets)
+        if self._edit_ready_cb is not None:
+            self._edit_ready_cb()
 
     def _calibrate(self) -> bool:
         """Measured go/no-go for the offload: the device's best-case
@@ -280,8 +335,9 @@ class _ServerCore:
 
     # -- dispatcher ----------------------------------------------------
     def run_dispatch(self, req_get, resp_put):
-        """req_get(timeout) -> (client_id, req_id, lens, buf) | None (stop);
-        resp_put(client_id, msg).  Blocks until the stop sentinel."""
+        """req_get(timeout) -> (client_id, req_id, lens, buf[, "edit"]) |
+        None (stop); resp_put(client_id, msg).  Blocks until the stop
+        sentinel."""
         pending = []
         while True:
             try:
@@ -338,6 +394,8 @@ class _ServerCore:
         lens_all = np.concatenate([p[2] for p in pending])  # (M, 2) int32
         n_jobs_per_req = np.array([len(p[2]) for p in pending], np.int64)
         job_req = np.repeat(np.arange(len(pending)), n_jobs_per_req)
+        is_edit = np.array([len(p) > 4 and p[4] == "edit" for p in pending],
+                           bool)[job_req]
         job_ji = np.arange(len(job_req)) - np.repeat(
             np.cumsum(n_jobs_per_req) - n_jobs_per_req, n_jobs_per_req)
         t_lens = lens_all[:, 0].astype(np.int64)
@@ -345,26 +403,49 @@ class _ServerCore:
         pair_sz = t_lens + q_lens
         t_offs = np.cumsum(pair_sz) - pair_sz  # start of each job's t
         q_offs = t_offs + t_lens
-        # bucket of each job (-1 = host)
+        # bucket of each fill job (-1 = host)
         mx = np.maximum(t_lens, q_lens)
         bucket_arr = np.full(len(mx), -1, np.int64)
         for b in reversed(self.buckets):
             bucket_arr[mx <= b] = b
-        bucket_arr[(t_lens == 0) | (q_lens == 0)] = -1
+        bucket_arr[(t_lens == 0) | (q_lens == 0) | is_edit] = -1
         # jobs holding an ambiguous base (code 4) go to the host, as in
         # the reference.  Nonzero jobs' byte spans tile all_buf, so one
         # reduceat over their starts gives every job's largest code.
         nz = pair_sz > 0
+        amb = np.zeros(len(mx), bool)
         if len(all_buf) and nz.any():
             seg_max = np.maximum.reduceat(all_buf, t_offs[nz])
-            amb = np.zeros(len(mx), bool)
             amb[nz] = seg_max >= 4
             bucket_arr[amb] = -1
         if self.band_ids:
             elig = band_eligible(t_lens, q_lens) & (bucket_arr > 0)
             bucket_arr[elig] |= BANDED
-        handles = []  # (bucket, handle, job indices)
-        overflow = np.flatnonzero(bucket_arr < 0)
+        handles = []  # (bucket, handle, job indices, kind)
+        # edit jobs: largest ready bucket first, so that the last fitting
+        # (smallest) one wins; a job over every bucket, with an empty
+        # side or with a code 4 (the kernel's rule for it is not the host
+        # ladder's) stays unrouted and is answered None
+        ea = self.edit_aligner
+        edit_idx = np.flatnonzero(is_edit)
+        if len(edit_idx) and ea is not None:
+            tl, ql = t_lens[edit_idx], q_lens[edit_idx]
+            fits = (tl > 0) & (ql > 0) & ~amb[edit_idx]
+            eb = np.full(len(edit_idx), -1, np.int64)
+            ebuckets = sorted(self.edit_ready, reverse=True)
+            for k, (T, Wd) in enumerate(ebuckets):
+                eb[fits & (tl <= T) & (ql <= Wd * 32)] = k
+            for k, (T, Wd) in enumerate(ebuckets):
+                idxs = edit_idx[eb == k]
+                for cs in range(0, len(idxs), ea.shape_b[T]):
+                    chunk = idxs[cs : cs + ea.shape_b[T]]
+                    jobs = [(all_buf[t_offs[j] : t_offs[j] + t_lens[j]],
+                             all_buf[q_offs[j] : q_offs[j] + q_lens[j]])
+                            for j in chunk]
+                    handles.append(((T, Wd), ea.dispatch_jobs(jobs, T, Wd),
+                                    chunk, "edit"))
+            edit_idx = edit_idx[eb < 0]
+        overflow = np.flatnonzero((bucket_arr < 0) & ~is_edit)
         for b in self.band_ids + self.buckets:
             idxs = np.flatnonzero(bucket_arr == b)
             w = b & ~BANDED  # plane width
@@ -384,12 +465,12 @@ class _ServerCore:
                 tQ[rows, within] = all_buf[np.repeat(q_offs[chunk], ql) + within]
                 h = self.aligner.dispatch_padded(tT, tQ, tl.astype(np.int32),
                                                  ql.astype(np.int32), b)
-                handles.append((b, h, chunk))
+                handles.append((b, h, chunk, "fill"))
         with self._stats_lock:
             if self._stats is not None:
                 self._stats["disp_cpu"] += time.thread_time() - cpu0
-        self.inflight.put((pending, (job_req, job_ji), handles, overflow,
-                           resp_put))
+        self.inflight.put((pending, (job_req, job_ji), handles,
+                           (overflow, len(edit_idx)), resp_put))
 
     # -- downloader ----------------------------------------------------
     def run_download(self):
@@ -408,11 +489,11 @@ class _ServerCore:
                 if stats_path and st is not None:
                     self._write_stats(stats_path, st, t_start)
                 break
-            pending, (job_req, job_ji), handles, overflow, resp_put = item
+            pending, (job_req, job_ji), handles, unrouted, resp_put = item
             if self.error is None:
                 try:
                     self._download_item(pending, job_req, job_ji, handles,
-                                        overflow, resp_put)
+                                        unrouted, resp_put)
                     continue
                 except Exception as err:  # noqa: BLE001  reported to clients
                     traceback.print_exc(limit=6, file=sys.stderr)
@@ -424,34 +505,47 @@ class _ServerCore:
         host; host_slot: sent to the service but routed to the host
         (code 4, oversize, empty side); submitted / offloaded / capped /
         governed / not_ready: the clients' routes (see SUBMITTED);
-        device_share: jobs the kernels answered over jobs submitted."""
+        device_share: jobs the kernels answered over jobs submitted.
+        The edit kind: edit_submitted = edit_sent + edit_not_live +
+        edit_capped + edit_governed at the clients; of those sent,
+        edit_served by the edit aligner in edit_calls batches and
+        edit_unrouted answered None; edit_launches: the Myers kernel's
+        launches since the service became ready."""
         ru = resource.getrusage(resource.RUSAGE_SELF)
         dt = max(time.monotonic() - t_start, 1e-9)
         now = launch_counts()
         launches = ",".join(f"{k}:{now[k] - self._launch0[k]}" for k in now)
         sub, off, capped, governed = self.routes[:]
+        e_sub, e_sent, e_capped, e_governed, e_not_live = self.edit_routes[:]
         with open(path, "w") as fh:
             fh.write(
                 "calls=%d reqs=%d jobs=%d jobs/call=%.1f fetch_ms/call=%.1f "
                 "wall_s=%.1f cpu_s=%.1f disp_cpu=%.1f dl_cpu=%.1f escal=%d "
                 "host_slot=%d submitted=%d offloaded=%d capped=%d "
-                "governed=%d not_ready=%d device_share=%.4f launches=%s\n"
+                "governed=%d not_ready=%d device_share=%.4f launches=%s "
+                "edit_submitted=%d edit_sent=%d edit_not_live=%d "
+                "edit_capped=%d edit_governed=%d edit_served=%d "
+                "edit_unrouted=%d edit_calls=%d edit_launches=%d\n"
                 % (st["calls"], st["reqs"], st["jobs"],
                    st["jobs"] / max(st["calls"], 1),
                    st["fetch_s"] * 1e3 / max(st["calls"], 1), dt,
                    ru.ru_utime + ru.ru_stime, st["disp_cpu"], st["dl_cpu"],
                    st["escal"], st["host_slot"], sub, off, capped, governed,
                    sub - off - capped - governed,
-                   (st["jobs"] - st["escal"]) / max(sub, 1), launches))
+                   (st["jobs"] - st["escal"]) / max(sub, 1), launches,
+                   e_sub, e_sent, e_not_live, e_capped, e_governed,
+                   st["edit_served"], st["edit_unrouted"], st["edit_calls"],
+                   myers_distances.launches - self._edit_launch0))
 
-    def _download_item(self, pending, job_req, job_ji, handles, overflow,
+    def _download_item(self, pending, job_req, job_ji, handles, unrouted,
                        resp_put):
         cpu0 = time.thread_time()
+        overflow, n_edit_unrouted = unrouted
         # per-request routing tables: req -> {(bucket, chunk#): slot}
         # (chunk# keys stop two same-bucket chunks from merging)
         per_req = [dict() for _ in pending]
         host_extra = {}
-        n_escal = n_jobs = 0
+        n_escal = n_jobs = n_edit = n_edit_calls = 0
         fetch_s = 0.0
 
         def req_groups(chunk):
@@ -463,9 +557,18 @@ class _ServerCore:
             for g in np.split(order, cuts):
                 yield int(rks[g[0]]), g
 
-        for ci, (b, h, chunk) in enumerate(handles):
-            n_jobs += len(chunk)
+        for ci, (b, h, chunk, kind) in enumerate(handles):
             t0 = time.monotonic()
+            if kind == "edit":
+                dists = self.edit_aligner.fetch(h)
+                fetch_s += time.monotonic() - t0
+                n_edit += len(chunk)
+                n_edit_calls += 1
+                for ri, rows in req_groups(chunk):
+                    per_req[ri][(b, ci)] = ("edist", dists[rows],
+                                            job_ji[chunk[rows]].tolist())
+                continue
+            n_jobs += len(chunk)
             res = self.aligner.fetch(h)  # blocks until the copy landed
             fetch_s += time.monotonic() - t0
             if res[0] == "rrb":
@@ -502,7 +605,10 @@ class _ServerCore:
             per_req[ri][(-1, 0)] = ("host", extra)
         with self._stats_lock:
             if self._stats is not None:
-                self._stats["calls"] += len(handles)
+                self._stats["calls"] += len(handles) - n_edit_calls
+                self._stats["edit_calls"] += n_edit_calls
+                self._stats["edit_served"] += n_edit
+                self._stats["edit_unrouted"] += n_edit_unrouted
                 self._stats["jobs"] += n_jobs
                 self._stats["reqs"] += len(pending)
                 self._stats["fetch_s"] += fetch_s
@@ -556,6 +662,19 @@ def decode_response(msg, pairs, eqx: bool):
     return results
 
 
+def decode_edit_response(msg, n_pairs: int) -> List[Optional[int]]:
+    """Edit-kind response -> the exact distance of every routed job, None
+    for the unrouted ones.  An error slot raises DeviceKernelError."""
+    results: List[Optional[int]] = [None] * n_pairs
+    for slot in msg.values():
+        if slot[0] == "error":
+            raise DeviceKernelError(f"device fill service: {slot[1]}")
+        if slot[0] == "edist":
+            for d, ji in zip(slot[1], slot[2]):
+                results[ji] = int(d)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # in-process transport (batched executor)
 # ---------------------------------------------------------------------------
@@ -571,9 +690,10 @@ class AsyncFillAligner:
 
     def __init__(self, aligner, buckets=DEFAULT_BUCKETS,
                  max_wait_ms=MAX_WAIT_MS, prewarm: bool = True,
-                 force: bool = True):
+                 force: bool = True, edit_aligner=None):
         self.core = _ServerCore(aligner, buckets=buckets,
-                                max_wait_ms=max_wait_ms, force=force)
+                                max_wait_ms=max_wait_ms, force=force,
+                                edit_aligner=edit_aligner)
         self.req_q: "queue.Queue" = queue.Queue()
         self._events: Dict[int, dict] = {}
         self._lock = threading.Lock()
@@ -597,6 +717,8 @@ class AsyncFillAligner:
         try:
             if self._do_prewarm:
                 self.core.prewarm()
+            else:
+                self.core.ready_edit(warm=False)
             if not self.core.competitive:
                 self.failed = True  # calibrated no-go: stay on host fills
         except Exception as err:  # noqa: BLE001  raised by every submit
@@ -672,10 +794,39 @@ class AsyncFillAligner:
                 f"device fill service: no response in {timeout:.0f} s")
         return decode_response(box["msg"], pairs, eqx)
 
-    def edit_batch(self, pairs):
-        """No device edit-distance kernel: every entry is None (the
-        caller's host ladder)."""
-        return [None] * len(pairs)
+    def edit_batch(self, pairs, timeout: float = WAIT_S):
+        """Exact edit distances from the service's edit kernel; a None
+        entry is the caller's to resolve on the host.  All None at once,
+        with no round trip, while no edit kernel is live or the in-flight
+        backlog is at the cap.  A request that was sent is waited for:
+        an error response or none within ``timeout`` raises
+        DeviceKernelError."""
+        self._check()
+        n = len(pairs)
+        if not n:
+            return []
+        routes = self.core.edit_routes
+        _count(routes, SUBMITTED, n)
+        if self.failed or not self.ready.is_set() or not self.core.edit_ready:
+            _count(routes, NOT_LIVE, n)
+            return [None] * n
+        box = {"event": threading.Event(), "msg": None, "n": n}
+        with self._lock:
+            admit = self._pending_n < MAX_INFLIGHT_JOBS
+            if admit:
+                self._pending_n += n
+                req_id = self._next_id
+                self._next_id += 1
+                self._events[req_id] = box
+        _count(routes, OFFLOADED if admit else CAPPED, n)
+        if not admit:
+            return [None] * n
+        self.req_q.put((0, req_id, *pack_pairs(pairs), "edit"))
+        if not box["event"].wait(timeout=timeout):
+            self._check()
+            raise DeviceKernelError(
+                f"device fill service: no edit response in {timeout:.0f} s")
+        return decode_edit_response(box["msg"], n)
 
     def stop(self, timeout: float = 10.0) -> Optional[str]:
         """Drain and join the pipeline threads, so none is inside a device
@@ -701,6 +852,7 @@ def async_fill_aligner(device, buckets=DEFAULT_BUCKETS, force: bool = True,
     """The in-process service on ``device``.  force=False runs the
     start-up calibration and stays on host fills when the device's
     best-case rate cannot beat the host's own fill kernels."""
+    kw.setdefault("edit_aligner", _make_edit_aligner(device))
     return AsyncFillAligner(_make_aligner(buckets, device), buckets=buckets,
                             force=force, **kw)
 
@@ -711,12 +863,18 @@ def async_fill_aligner(device, buckets=DEFAULT_BUCKETS, force: bool = True,
 
 
 def _server_main(req_q, resp_qs, buckets, device, ready_evt, status, err_buf,
-                 routes, prewarm: bool, force: bool):
-    """Entry point of the device-owning service process."""
+                 routes, prewarm: bool, force: bool, edit_val=None,
+                 edit_routes=None):
+    """Entry point of the device-owning service process.  ``edit_val`` is
+    set to 1 once the edit kernel takes traffic."""
 
     def report(msg):
         err_buf.value = msg.encode("utf-8", "replace")[: len(err_buf) - 1]
         status.value = FAILED
+
+    def edit_live():
+        if edit_val is not None:
+            edit_val.value = 1
 
     try:
         dev = resolve_device(str(device))
@@ -725,9 +883,13 @@ def _server_main(req_q, resp_qs, buckets, device, ready_evt, status, err_buf,
             torch.set_num_threads(1)
         core = _ServerCore(_make_aligner(buckets, dev), buckets=buckets,
                            force=force, n_clients=len(resp_qs),
-                           on_error=report, routes=routes)
+                           on_error=report, routes=routes,
+                           edit_aligner=_make_edit_aligner(dev),
+                           edit_ready_cb=edit_live, edit_routes=edit_routes)
         if prewarm:
             core.prewarm()
+        else:
+            core.ready_edit(warm=False)
     except Exception as err:  # noqa: BLE001  the parent reports it
         report(_error_text(err))
         ready_evt.set()
@@ -768,7 +930,8 @@ def _status_error(status, err_buf) -> Optional[str]:
 
 class FillServerHandle:
     def __init__(self, proc, req_q, resp_qs, ready_evt, status, err_buf,
-                 pending_ctr, lat_sh, routes):
+                 pending_ctr, lat_sh, routes, edit_val=None,
+                 edit_routes=None):
         self.proc = proc
         self.req_q = req_q
         self.resp_qs = resp_qs
@@ -778,13 +941,17 @@ class FillServerHandle:
         self.pending_ctr = pending_ctr
         self.lat_sh = lat_sh
         self.routes = routes
+        self.edit_val = edit_val  # shared flag: 1 = an edit kernel is live
+        self.edit_routes = edit_routes
         self._stopped = False
 
     def client(self, worker_id: int) -> "FillClient":
         return FillClient(worker_id, self.req_q, self.resp_qs[worker_id],
                           ready_evt=self.ready_evt, status=self.status,
                           err_buf=self.err_buf, pending_ctr=self.pending_ctr,
-                          lat_sh=self.lat_sh, routes=self.routes)
+                          lat_sh=self.lat_sh, routes=self.routes,
+                          edit_val=self.edit_val,
+                          edit_routes=self.edit_routes)
 
     def wait_ready(self, timeout: float = 900.0) -> bool:
         """Block until the service is warm; False after a calibrated
@@ -854,15 +1021,17 @@ def start_fill_server(n_clients: int, device, buckets=DEFAULT_BUCKETS,
     # worker fork generations
     lat_sh = ctx.Value("d", -1.0)
     routes = ctx.Array("q", 4)  # the clients' route counters
+    edit_val = ctx.Value("i", 0)  # 1 once the service's edit kernel is live
+    edit_routes = ctx.Array("q", 5)  # the edit kind's route counters
     proc = ctx.Process(
         target=_server_main,
         args=(req_q, resp_qs, buckets, str(device), ready, status, err_buf,
-              routes, prewarm, force),
+              routes, prewarm, force, edit_val, edit_routes),
         daemon=True,
     )
     proc.start()
     handle = FillServerHandle(proc, req_q, resp_qs, ready, status, err_buf,
-                              pending, lat_sh, routes)
+                              pending, lat_sh, routes, edit_val, edit_routes)
     if wait_ready:
         try:
             serving = handle.wait_ready(ready_timeout)
@@ -895,7 +1064,8 @@ class FillClient:
     wants_window_jobs = True  # see AsyncFillAligner
 
     def __init__(self, worker_id: int, req_q, resp_q, ready_evt, status,
-                 err_buf, pending_ctr=None, lat_sh=None, routes=None):
+                 err_buf, pending_ctr=None, lat_sh=None, routes=None,
+                 edit_val=None, edit_routes=None):
         self.worker_id = worker_id
         self.req_q = req_q
         self.resp_q = resp_q
@@ -911,6 +1081,9 @@ class FillClient:
         self._status = status
         self._err_buf = err_buf
         self._routes = routes if routes is not None else mp.Array("q", 4)
+        self._edit_val = edit_val  # shared flag: an edit kernel is live
+        self._edit_routes = (edit_routes if edit_routes is not None
+                             else mp.Array("q", 5))
         self.offloaded_jobs = 0  # accepted by the gate (this client)
         self.bounced_jobs = 0    # host-filled by the gate (this client)
         # gate-bounced jobs join a CROSS-READ host batch (the host
@@ -955,11 +1128,12 @@ class FillClient:
             ctr.value += n
         return True
 
-    def _admit(self, n: int) -> bool:
+    def _admit(self, n: int, routes=None) -> bool:
         """Backpressure gate: reserve n in-flight job slots, or report
         the service saturated (the caller host-fills instead of
         queueing).  Applies BOTH halves, the latency governor and the
-        in-flight cap, and counts the route."""
+        in-flight cap, and counts the route in ``routes`` (default: the
+        fill kind's)."""
         # the governor closes on this estimate; below it (or with no
         # estimate yet) a refusal is the in-flight cap's
         lat = self._lat_sh.value if self._lat_sh is not None else -1.0
@@ -970,7 +1144,7 @@ class FillClient:
             self.bounced_jobs += n
         kind = (OFFLOADED if admitted else
                 GOVERNED if lat > MAX_LAT_S else CAPPED)
-        _count(self._routes, kind, n)
+        _count(self._routes if routes is None else routes, kind, n)
         return admitted
 
     def _release(self, box) -> None:
@@ -1114,7 +1288,38 @@ class FillClient:
                 f"device fill service: no response in {timeout:.0f} s")
         return decode_response(box["msg"], pairs, eqx)
 
-    def edit_batch(self, pairs):
-        """No device edit-distance kernel: every entry is None (the
-        caller's host ladder)."""
-        return [None] * len(pairs)
+    def edit_batch(self, pairs, timeout: float = WAIT_S):
+        """Exact edit distances from the service's edit kernel; a None
+        entry is the caller's to resolve on the host.  This call is
+        synchronous, so it answers all None at once, with no round trip,
+        unless the service reports a live edit kernel and the admission
+        gate is open.  A request that was sent is never redone on the
+        host: an error response, a failed service or no response within
+        ``timeout`` raises DeviceKernelError."""
+        self._check()
+        n = len(pairs)
+        if not n:
+            return []
+        routes = self._edit_routes
+        _count(routes, SUBMITTED, n)
+        if (self.failed or self._edit_val is None or not self._edit_val.value
+                or not self._server_ready()):
+            _count(routes, NOT_LIVE, n)
+            return [None] * n
+        if not self._admit(n, routes):
+            return [None] * n
+        box = {"event": threading.Event(), "msg": None, "n": n,
+               "t0": time.monotonic()}
+        with self._lock:
+            req_id = self._next_id
+            self._next_id += 1
+            self._events[req_id] = box
+        self.req_q.put((self.worker_id, req_id, *pack_pairs(pairs), "edit"))
+        if not self._drain_until(box, timeout):
+            with self._lock:
+                stale = self._events.pop(req_id, None)
+            self._release(stale)
+            self._check()
+            raise DeviceKernelError(
+                f"device fill service: no edit response in {timeout:.0f} s")
+        return decode_edit_response(box["msg"], n)

@@ -18,6 +18,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from ..device import DeviceKernelError
 from ..ops.affine_ref import AlignResult, align2p
 from ..ops.edit import divergence_exceeds
 from ..seq import revcomp_codes
@@ -299,6 +300,8 @@ def divergence_filter(
                 # "dists resolved" silently disabled the bound pass AND
                 # the window cigar cache in the round-3 device deployment
                 dists = None
+        except DeviceKernelError:  # a device fault stops the run
+            raise
         except Exception:
             dists = None
     bounds = {}
