@@ -15,7 +15,12 @@ the final line):
      deletion) and 16 more with a 120-250 bp deletion;
   4. kernels: every kernel against its plain PyTorch version on the card
      at main-path shapes (chain S within 1e-3 and P agreement >= 0.999;
-     fill planes and scan op streams byte-identical); the warm-start
+     fill planes and scan op streams byte-identical); the chain kernel
+     at four large batches, then at the executor's small ones (mismatch
+     B = 8 at N = 8192, fine B = 16 and B = 8 at N = 2048: few reads,
+     each spread over a thread block cluster) and with the refund
+     ledger, three of these shapes also at every cluster size (1, 2, 4,
+     8 CTAs a read: same bits, the times printed); the warm-start
      chain kernel at B = 1 with an unsorted frontier (frozen rows exact)
      at N = 4096 (phase 6's 2 Mb contig gives it 100 kb blocks of about
      2,800 anchors, co-diagonal seeds merged, and a frontier of a few),
@@ -593,7 +598,7 @@ def main() -> int:
     skip_l, maxdiff_l, maxgap_l = cfg0.chain_params_local()
     summary = {}
 
-    def chain_phase(variant, B, N):
+    def chain_phase(variant, B, N, rng=rng, sweep=False):
         local = variant in ("fine", "mismatch")
         k, skip, md, mg = ((cfg0.local_kmersize, skip_l, maxdiff_l, maxgap_l)
                            if local else (15, skip_g, maxdiff_g, maxgap_g))
@@ -625,6 +630,22 @@ def main() -> int:
             f"({b_by}, {pairs} pairs) [{card}] {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"chain_dp {variant} B={B} N={N} disagrees with its plain version")
+        if sweep:
+            # the same launch at every cluster size (CTAs a read): the same
+            # bits, and the time each takes beside the launch's own choice
+            times = []
+            for c in (1, 2, 4, 8):
+                at_c = lambda: chain.chain_scores_batch(*x, **kw, cluster=c)  # noqa: E731
+                S_c, P_c = at_c()
+                if not (np.array_equal(S_c.cpu().numpy().view(np.int32),
+                                       S.view(np.int32))
+                        and np.array_equal(P_c.cpu().numpy(), P)):
+                    fail(f"chain_dp {variant} B={B} N={N}: a cluster of {c} "
+                         f"changes the result")
+                times.append(f"{c}: {device_ms(torch, at_c, 3):.3f} ms")
+            say(f"kernel chain_dp {variant} B={B} N={N} by CTAs a read (the "
+                f"launch's choice took {ms:.3f} ms; results bit-identical): "
+                + ", ".join(times) + f" [{card}]")
         return err, ms, wrap_ms, plain_ms, b_ms, b_by
 
     def warm_phase(n, n_warm):
@@ -686,8 +707,18 @@ def main() -> int:
         return err, ms, wrap_ms, plain_ms, b_ms, b_by
 
     try:
-        res = [chain_phase("global", 16, 8192), chain_phase("global", 64, 2048),
-               chain_phase("fine", 64, 1024), chain_phase("mismatch", 64, 1024)]
+        res = [chain_phase("global", 16, 8192, sweep=True),
+               chain_phase("global", 64, 2048),
+               chain_phase("fine", 64, 1024, sweep=True),
+               chain_phase("mismatch", 64, 1024)]
+        # the executor's local launches have few reads (the aggregator pads
+        # a group to 8 or 16), and refund is the R-mode ledger; a generator
+        # of their own, so that every later phase keeps its inputs
+        rng_small = np.random.default_rng(SEED + 5)
+        res += [chain_phase("mismatch", 8, 8192, rng_small),
+                chain_phase("fine", 16, 2048, rng_small),
+                chain_phase("fine", 8, 2048, rng_small, sweep=True),
+                chain_phase("refund", 16, 2048, rng_small)]
     except SystemExit:
         raise
     except Exception as err:  # noqa: BLE001

@@ -18,14 +18,16 @@ of 20 kb), after building the index once:
      or only import the host path;
   2. breakdown: one more executor run in this process under
      torch.profiler with the stage trace on (--debug): device time by
-     kernel and copy, the device's busy share of that run's wall time,
-     and the host stage spans summed over the finishing threads; then
+     kernel and copy (in all and per launch), the device's busy share
+     of that run's wall time, the chain kernel's launches by (variant,
+     B, N), and the host stage spans summed over the finishing threads; then
      the same with VACMAP_TPU_EDIT_DEVICE=1 (device time by kernel only);
   3. asm: chip_smoke.py's two contigs (2 Mb streaming, 480 kb per call)
      mapped by `-mode asm` as processes of their own for --runs rounds,
      host path and `--backend jax --device cuda` in turns, then once in
      this process under torch.profiler: device time of the tiled chain
-     kernel's scan and finish parts and of the copies.
+     kernel (in all and per launch) and of the copies, and its launches
+     by (variant, B, N).
 Every result line carries the card's name and power limit.
 """
 
@@ -70,6 +72,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from vacmap_tpu_torch import _build, cli, trace
+    from vacmap_tpu_torch.ops import chain
 
     card = subprocess.run(cs.SMI_QUERY, capture_output=True, text=True,
                           timeout=60).stdout.strip()
@@ -129,6 +132,7 @@ def main() -> int:
                    f"({len(reads)} reads, {bases} bp) [{card}]{extra}")
 
         trace.reset()
+        chain.chain_scores_batch.shapes.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -141,6 +145,7 @@ def main() -> int:
             cs.fail(f"profiled port run exited {rc}")
         spans = trace.summary()
         trace.enable(False)
+        executor_shapes = dict(chain.chain_scores_batch.shapes)
         os.environ["VACMAP_TPU_EDIT_DEVICE"] = "1"
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -176,6 +181,8 @@ def main() -> int:
                     f"(mapping alone {cs.mapping_seconds(p.stderr):.1f} s; "
                     f"{len(contigs)} contigs, {cbases} bp) [{card}]"
                     + (f" {stats}" if stats else ""))
+        for w in (chain.chain_scores_batch, chain.chain_scores_batch_warm):
+            w.shapes.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as asm_prof:
             t0 = time.perf_counter()
@@ -190,9 +197,14 @@ def main() -> int:
     rows = sorted(device_events(torch, prof), key=lambda r: -r[2])
     busy = sum(us for _, _, us in rows) / 1e3
     for key, n, us in rows[:15]:
-        cs.say(f"  device {us / 1e3:10.3f} ms  n={n:6d}  {key[:90]}")
+        cs.say(f"  device {us / 1e3:10.3f} ms  n={n:6d}  "
+               f"{us / 1e3 / max(n, 1):8.4f} ms a launch  {key[:90]}")
     cs.say(f"device time (kernels and copies) {busy:.1f} ms of wall "
            f"{wall * 1e3:.1f} ms: busy share {busy / (wall * 1e3):.4f}")
+    cs.say(f"chain_dp launches by (variant, B, N), "
+           f"{sum(executor_shapes.values())} in all: "
+           + "; ".join(f"{v} B={b} N={n}: {k}" for (v, b, n), k
+                       in sorted(executor_shapes.items())))
     cs.say("host stage spans (summed over threads):\n" + spans)
     rows = sorted(device_events(torch, edit_prof), key=lambda r: -r[2])
     busy = sum(us for _, _, us in rows) / 1e3
@@ -208,9 +220,16 @@ def main() -> int:
     busy = sum(us for _, _, us in rows) / 1e3
     cs.say(f"profiled in-process asm run: wall {asm_wall:.3f} s [{card}]")
     for key, n, us in rows[:8]:
-        cs.say(f"  device {us / 1e3:10.3f} ms  n={n:6d}  {key[:90]}")
+        cs.say(f"  device {us / 1e3:10.3f} ms  n={n:6d}  "
+               f"{us / 1e3 / max(n, 1):8.4f} ms a launch  {key[:90]}")
     cs.say(f"device time (kernels and copies) {busy:.1f} ms of wall "
            f"{asm_wall * 1e3:.1f} ms: busy share {busy / (asm_wall * 1e3):.4f}")
+    for name, w in (("chain_dp", chain.chain_scores_batch),
+                    ("chain_dp_large", chain.chain_scores_batch_warm)):
+        cs.say(f"asm {name} launches by (variant, B, N), "
+               f"{sum(w.shapes.values())} in all: "
+               + "; ".join(f"{v} B={b} N={n}: {k}" for (v, b, n), k
+                           in sorted(w.shapes.items())))
     return 0
 
 

@@ -33,6 +33,61 @@ def chainy_anchors(rng, read_len=3000, step=40, diag=5000, noise=10):
     return out[np.argsort(out[:, 0], kind="stable")]
 
 
+def tied_anchors(rng, n, span=40):
+    """n anchors on n / 8 read positions (up to 20 share one, as a
+    repeat's seeds do), one length: groups of equal barrier lie across the
+    kernels' tile edges.  Half lie on one diagonal, so that chains form."""
+    pos = np.sort(rng.choice(np.arange(0, span * n, 7), max(n // 8, 2), replace=False))
+    r = np.sort(rng.choice(pos, n))
+    y = np.where(rng.random(n) < 0.5, r + 5000 + rng.integers(-2, 3, n),
+                 rng.integers(0, 100_000, n))
+    return np.stack([r, y, rng.choice([-1, 1], n, p=[0.2, 0.8]),
+                     np.full(n, 15)], axis=1).astype(np.int64)
+
+
+def by_barrier(a, variant):
+    key = a[:, 0] + (a[:, 3] if variant in ("fine", "mismatch") else 0)
+    return a[np.argsort(key, kind="stable")]
+
+
+VARIANTS = ["global", "global_nocov", "refund", "fine", "mismatch"]
+CHAIN_KW = dict(kmersize=15, maxdiff=50, maxgap=1000, skipcost=40.0)
+
+
+def _chain_on_card_against_plain(dev, alist, variant, clusters):
+    """chain_scores_batch on the card at every cluster size of
+    ``clusters`` (0: the launch's own choice): each one launch, all equal
+    bit for bit, and within the stated tolerance of the plain version
+    (S atol 1e-3, P agreement >= 0.999; rows past n_valid exact)."""
+    from vacmap_tpu_torch.ops.chain import (
+        chain_scores_batch, chain_scores_batch_ref, prepare_batch, to_device,
+    )
+
+    arrays = prepare_batch(alist, variant, 40.0, 50)
+    x = to_device(dev, *arrays)
+    kw = dict(CHAIN_KW, variant=variant)
+    got = []
+    for c in clusters:
+        before = chain_scores_batch.launches
+        S, P = chain_scores_batch(*x, **kw, cluster=c)
+        torch.cuda.synchronize()
+        assert chain_scores_batch.launches == before + 1
+        got.append((S.cpu().numpy(), P.cpu().numpy()))
+    S, P = got[0]
+    for S_c, P_c in got[1:]:
+        assert np.array_equal(S_c.view(np.int32), S.view(np.int32))
+        assert np.array_equal(P_c, P)
+    S0, P0 = (t.cpu().numpy() for t in chain_scores_batch_ref(*x, **kw))
+    valid = np.arange(arrays[0].shape[1])[None, :] < arrays[1][:, None]
+    np.testing.assert_allclose(S[valid], S0[valid], atol=1e-3, rtol=1e-6)
+    assert (S[~valid] == 0).all() and (P[~valid] == -1).all()
+    agree = float(np.mean(P[valid] == P0[valid])) if valid.any() else 1.0
+    print(f"chain_dp {variant} B={len(alist)} N={arrays[0].shape[1]} clusters "
+          f"{clusters}: max|dS|={float(np.abs(S - S0)[valid].max()):.3g} "
+          f"P agreement={agree:.6f}")
+    assert agree >= 0.999
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -70,7 +125,7 @@ def _planes(pairs, N):
     return tT, tQ, lens
 
 
-@pytest.mark.parametrize("variant", ["global", "global_nocov", "refund", "fine", "mismatch"])
+@pytest.mark.parametrize("variant", VARIANTS)
 def test_chain_kernel_matches_plain(dev, variant):
     from vacmap_tpu_torch.ops.chain import (
         chain_scores_batch, chain_scores_batch_ref, prepare_batch, to_device,
@@ -94,6 +149,48 @@ def test_chain_kernel_matches_plain(dev, variant):
     np.testing.assert_allclose(S[valid], S0[valid], atol=1e-3, rtol=1e-6)
     assert (S[~valid] == 0).all() and (P[~valid] == -1).all()
     assert np.mean(P[valid] == P0[valid]) >= 0.999
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_chain_kernel_small_batch_large_n_every_cluster_size(dev, variant, B):
+    """The executor's local launches: a few reads of up to 8192 anchors,
+    each spread over a thread block cluster.  Every cluster size the
+    launch can choose gives the same bits."""
+    rng = np.random.default_rng(51 + B)
+    alist = []
+    for _ in range(B):
+        n = int(rng.integers(5000, 8193))
+        a = chainy_anchors(rng, read_len=36 * n, noise=n // 10)
+        alist.append(by_barrier(a[rng.permutation(len(a))[:n]], variant))
+    assert max(len(a) for a in alist) > 4096
+    _chain_on_card_against_plain(dev, alist, variant, (0, 1, 2, 4, 8))
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_chain_kernel_ties_ragged_and_unsorted_reads(dev, variant):
+    """Groups of equal barrier across tile edges, n_valid around and below
+    one tile of 64 rows, an empty read, a chain with jumps (the refund
+    ledger across tile edges), and reads that are not sorted beside sorted
+    ones: the unsorted reads take the kernel's row-at-a-time route and get
+    the plain version's result too."""
+    rng = np.random.default_rng(52)
+    jumps = chainy_anchors(rng, read_len=20000, noise=40)
+    for lo, shift in ((4000, 4000), (9000, 9000), (15000, 2500)):
+        jumps[jumps[:, 0] >= lo, 1] += shift
+    alist = [tied_anchors(rng, 1000), tied_anchors(rng, 65), jumps,
+             chainy_anchors(rng, read_len=2400, noise=3)[:63],
+             np.zeros((0, 4), np.int64), random_anchors(rng, 1),
+             chainy_anchors(rng, read_len=20000, noise=40),
+             random_anchors(rng, 700)]
+    alist = [by_barrier(a, variant) for a in alist]
+    for k in (6, 7):  # two reads out of order
+        a = alist[k]
+        a[[len(a) // 5, len(a) // 2]] = a[[len(a) // 2, len(a) // 5]]
+    for k, a in enumerate(alist):  # the unsorted reads are what they claim
+        bar = a[:, 0] + (a[:, 3] if variant in ("fine", "mismatch") else 0)
+        assert bool((np.diff(bar) < 0).any()) == (k in (6, 7))
+    _chain_on_card_against_plain(dev, alist, variant, (0, 1, 4))
 
 
 @pytest.mark.parametrize("N", [256, 512])
@@ -203,8 +300,8 @@ def _warm_inputs(rng, n, n_warm, variant):
     return arrays, w_S, w_P, np.array([n_warm], np.int32), len(linked)
 
 
-@pytest.mark.parametrize("variant", ["global", "global_nocov", "refund", "fine", "mismatch"])
-@pytest.mark.parametrize("n,n_warm", [(9000, 300), (700, 40), (3000, 0)])
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("n,n_warm", [(9000, 300), (700, 40), (3000, 0), (50, 3)])
 def test_warm_chain_kernel_matches_plain(dev, variant, n, n_warm):
     """The tiled warm-start kernel against its plain version: scored rows
     within the stated tolerance, frozen rows and rows past n_valid exact."""
@@ -229,6 +326,52 @@ def test_warm_chain_kernel_matches_plain(dev, variant, n, n_warm):
     assert np.array_equal(S[nv:], w_S[0, nv:]) and (P[nv:] == -1).all()
     if n_warm:
         assert ((P[n_warm:nv] >= 0) & (P[n_warm:nv] < n_warm)).any()
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_warm_chain_kernel_ties_and_ragged_frontiers(dev, variant):
+    """Two problems in one call: frontiers of 200 and 7 rows (tiles start
+    at row 7, so the first problem has tiles of frozen rows only and a
+    last frozen tile that is ragged), blocks with groups of equal barrier
+    across tile edges, n_valid no multiple of the tile."""
+    from vacmap_tpu_torch.ops.chain import (
+        chain_scores_batch_warm, chain_scores_batch_warm_ref, prepare_batch,
+        to_device,
+    )
+
+    rng = np.random.default_rng(46)
+    n_warm = np.array([200, 7], np.int32)
+    alist = []
+    for nw, n in zip(n_warm, (1501, 900)):
+        a = by_barrier(tied_anchors(rng, n), variant)
+        a[:, 0] += 5000
+        f = a[rng.permutation(n)[:nw]].copy()
+        f[:, 0] -= rng.integers(100, 4000, nw)
+        alist.append(np.concatenate([f, a]))
+    arrays = prepare_batch(alist, variant, 40.0, 50)
+    N = arrays[0].shape[1]
+    w_S = np.full((2, N), 7.5, np.float32)
+    w_P = np.full((2, N), -3, np.int32)
+    for b, nw in enumerate(n_warm):
+        w_S[b, :nw] = np.sort(1000.0 - rng.random(nw) * 96.0)
+        w_P[b, :nw] = -rng.integers(0, 30000, nw) - 2
+    x = to_device(dev, *arrays, w_S, w_P, n_warm)
+    kw = dict(CHAIN_KW, variant=variant)
+    before = chain_scores_batch_warm.launches
+    S, P = chain_scores_batch_warm(*x, **kw)
+    torch.cuda.synchronize()
+    assert chain_scores_batch_warm.launches == before + 1
+    S0, P0 = chain_scores_batch_warm_ref(*x, **kw)
+    S, P, S0, P0 = (t.cpu().numpy() for t in (S, P, S0, P0))
+    idx = np.arange(N)[None, :]
+    frozen, past = idx < n_warm[:, None], idx >= arrays[1][:, None]
+    scored = ~frozen & ~past
+    np.testing.assert_allclose(S[scored], S0[scored], atol=1e-3, rtol=1e-6)
+    assert np.mean(P[scored] == P0[scored]) >= 0.999
+    assert np.array_equal(S[~scored], S0[~scored])
+    assert np.array_equal(P[~scored], P0[~scored])
+    assert np.array_equal(S[frozen], w_S[frozen])
+    assert ((P >= 0) & (P < n_warm[:, None]) & scored).any()
 
 
 def test_cold_chain_above_shared_memory_limit_takes_the_tiled_kernel(dev):

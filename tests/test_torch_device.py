@@ -150,3 +150,26 @@ def test_build_raises_without_nvcc():
         pytest.skip("a built library is present")
     with pytest.raises(DeviceKernelError, match="nvcc"):
         _build.build()
+
+
+@pytest.mark.parametrize("path", [
+    "pipeline.executor:TorchBatchExecutor",
+    "parallel.device_service:TorchAggregatingChainBackend",
+    "ops.chain:TorchChainBackend",
+    "ops.chain:TorchStreamChainBackend",
+    "ops.myers:TorchMyersAligner",
+    "ops.affine_fill:TorchFillAligner",
+])
+def test_constructors_have_no_default_device(path):
+    """A caller that forgets the device must hear of it: no constructor of
+    the port falls back to the CPU (or to any device) on its own."""
+    import importlib
+    import inspect
+
+    mod, name = path.split(":")
+    cls = getattr(importlib.import_module(f"vacmap_tpu_torch.{mod}"), name)
+    param = inspect.signature(cls.__init__).parameters["device"]
+    assert param.default is inspect.Parameter.empty
+    args = (None,) if name == "TorchBatchExecutor" else ()
+    with pytest.raises(TypeError, match="device"):
+        cls(*args)

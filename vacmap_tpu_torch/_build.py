@@ -41,7 +41,7 @@ _F = ctypes.c_float
 # c_void_p so ctypes passes full 64-bit values
 _SIGNATURES = {
     "chain_dp_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                        _F, _P],
+                        _F, _I, _P],
     "chain_dp_warm_launch": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _F, _P],
     "chain_dp_warm_scratch_bytes": [_I, _I],
     "fill_full_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -1,5 +1,6 @@
 // Pair scoring of the non-linear chaining DP, shared by chain_dp.cu and
-// chain_dp_large.cu so that the f32 operation order exists once.
+// chain_dp_large.cu (through chain_tile.cuh) so that the f32 operation
+// order exists once.
 //
 // A line-for-line translation of vacmap_tpu/ops/chain_jax.py::_pair_scores
 // and its helpers for one (i, j) pair.  f32 rules, so that P agrees with
@@ -20,37 +21,89 @@ constexpr float kNeg = -1e30f;  // chain_jax.NEG
 enum Variant { kGlobal = 0, kGlobalNocov = 1, kRefund = 2, kFine = 3,
                kMismatch = 4 };
 
-struct Pair {
-  float test;
-  bool colinear;
-  int bonus;
+// The S-free part of one (i, j) pair: every branch of the reference's
+// test(i, j) has the form
+//   t = (((S[j] - p0) + bonus) - p1) - p2
+// with p0 = skip_i on the global non-colinear branch only (kUseSkip), p1
+// the colinear gap cost or the branch's whole penalty, p2 the fine /
+// mismatch read-gap term, and zeros elsewhere (x - 0.0f is exact).  The
+// penalties are never folded into one another or into the bonus: the f32
+// operation order is the contract.  16 bytes, so a tile's in-tile pairs
+// fit shared memory as one record each.
+struct Terms {
+  float p1;
+  float p2;
+  float bonus;     // (float)bonus, the only form the scores use
+  unsigned flags;
 };
 
-// chain_jax._extra_penalty
+constexpr unsigned kCandidate = 1u;  // barrier_j < barrier_i (set by the tile code)
+constexpr unsigned kKill = 2u;       // test = kNeg (local variants, no progress)
+constexpr unsigned kColinear = 4u;
+constexpr unsigned kUseSkip = 8u;    // p0 = skip_i
+
+// The scalars of one launch, and the block's table of logs.
+struct ChainParams {
+  float kcoef;     // f32(0.01 * kmersize)
+  int maxgap;
+  float skipcost;
+  const float* log2_lut;  // shared memory, fill_log2_lut
+};
+
+// The logs of the DP take small integers almost always (a colinear gap
+// cost is at most maxdiff, a read gap term stops at 99 or 30).  Each block
+// tabulates log2f(k), k < kLog2Lut, with the same precise log2f the
+// scoring would call, so a table value is that call's value bit for bit.
+constexpr int kLog2Lut = 128;
+
+__device__ __forceinline__ void fill_log2_lut(float* lut, int tid,
+                                              int nthreads) {
+  for (int k = tid; k < kLog2Lut; k += nthreads)
+    lut[k] = log2f((float)(k > 0 ? k : 1));
+}
+
+// log2f((float)k) for an integer k >= 1
+__device__ __forceinline__ float log2_int(int k, const float* lut) {
+  return k < kLog2Lut ? lut[k] : log2f((float)k);
+}
+
+// chain_jax._extra_penalty:
+//   min(36, min(30 + 0.5 log(g), min(10, g / 100) + min(30, g / 1000))).
+// Most pairs of a read are far apart on the reference, so the common
+// cases are settled without the log and without the divisions, each with
+// the reference's result: g / 100 >= 10 from g = 1000 on and g / 1000 >=
+// 30 from g = 30,000 on (a correctly rounded division is monotonic, and
+// both are exact at the threshold); the log term is at least 30 (g >= 1),
+// so it cannot win against a third term of at most 30; and from
+// g = 163,000 on (log g > 12.0015) it is above 36 while the third term is
+// 40, so the result is 36.
 __device__ __forceinline__ float extra_penalty(int gapcost) {
-  const float g = fmaxf((float)gapcost, 1.0f);
+  if (gapcost >= 163000) return 36.0f;
   const float gf = (float)gapcost;
-  return fminf(36.0f, fminf(30.0f + 0.5f * logf(g),
-                            fminf(10.0f, gf / 100.0f) +
-                                fminf(30.0f, gf / 1000.0f)));
+  const float a = gapcost >= 1000 ? 10.0f : fminf(10.0f, gf / 100.0f);
+  const float b = gapcost >= 30000 ? 30.0f : fminf(30.0f, gf / 1000.0f);
+  const float third = a + b;
+  if (third <= 30.0f) return third;
+  const float g = fmaxf(gf, 1.0f);
+  return fminf(36.0f, fminf(30.0f + 0.5f * logf(g), third));
 }
 
-// chain_jax._gapcost_colinear (kcoef = f32(0.01 * kmersize))
-__device__ __forceinline__ float gapcost_colinear(int gapcost, float kcoef,
-                                                  bool local) {
+// chain_jax._gapcost_colinear
+__device__ __forceinline__ float gapcost_colinear(int gapcost, bool local,
+                                                  const ChainParams& prm) {
   if (!(gapcost > 0)) return 0.0f;
-  const float g = fmaxf((float)gapcost, 1.0f);
-  const float lg = log2f(g);
+  const float lg = log2_int(gapcost, prm.log2_lut);
   const float coef = (local && gapcost > 10) ? 2.0f : 0.5f;
-  return kcoef * (float)gapcost + coef * lg;
+  return prm.kcoef * (float)gapcost + coef * lg;
 }
 
-// chain_jax._pair_scores for one (i, j) pair.  Only the branch that
-// `where(colinear, col, sv)` keeps is evaluated.
+// chain_jax._pair_scores for one (i, j) pair without S[j].  Only the
+// branch that `where(colinear, col, sv)` keeps is evaluated.
 template <int V>
-__device__ __forceinline__ Pair pair_score(int4 ai, int4 aj, float Sj,
-                                           float skip, int md, float kcoef,
-                                           int maxgap, float skipcost) {
+__device__ __forceinline__ Terms pair_terms(int4 ai, int4 aj, float skip,
+                                            int md, const ChainParams& prm) {
+  const int maxgap = prm.maxgap;
+  const float skipcost = prm.skipcost;
   constexpr bool local = (V == kFine || V == kMismatch);
   const int r_i = ai.x, y_i = ai.y, s_i = ai.z, l_i = ai.w;
   const int r_j = aj.x, y_j = aj.y, s_j = aj.z, l_j = aj.w;
@@ -88,36 +141,47 @@ __device__ __forceinline__ Pair pair_score(int4 ai, int4 aj, float Sj,
   const bool colinear =
       same && (refgap >= 0) && (readgap <= maxgap) && (gapcost <= md);
 
-  const float bonus_f = (float)bonus;
-  float test;
+  Terms t;
+  t.bonus = (float)bonus;
+  t.p2 = 0.0f;
+  t.flags = 0u;
   if (colinear) {
-    float col = (Sj + bonus_f) - gapcost_colinear(gapcost, kcoef, local);
+    t.flags |= kColinear;
+    t.p1 = gapcost_colinear(gapcost, local, prm);
+    // log2f(rg + 1.0f) of the reference: rg + 1 is a small integer
     if (V == kFine) {
-      const float rg = (float)(readgap < 99 ? readgap : 99);
-      col = col - (readgap > 0 ? 0.1f * log2f(rg + 1.0f) : 0.0f);
+      const int rg = readgap < 99 ? readgap : 99;
+      t.p2 = readgap > 0 ? 0.1f * log2_int(rg + 1, prm.log2_lut) : 0.0f;
     } else if (V == kMismatch) {
-      const float rgf = (float)readgap;
-      const float lrg =
-          readgap >= 30 ? 0.5f * rgf : 0.1f * log2f(rgf + 1.0f);
-      col = col - (readgap > 0 ? lrg : 0.0f);
+      if (readgap >= 30)
+        t.p2 = 0.5f * (float)readgap;
+      else
+        t.p2 = readgap > 0 ? 0.1f * log2_int(readgap + 1, prm.log2_lut) : 0.0f;
     }
-    test = col;
   } else {
     if (V == kGlobal || V == kGlobalNocov) {
-      test = ((Sj - skip) + bonus_f) - extra_penalty(gapcost);
+      t.flags |= kUseSkip;
+      t.p1 = extra_penalty(gapcost);
     } else if (V == kRefund) {
-      test = (Sj + bonus_f) - skip;
+      t.p1 = skip;
     } else if (V == kFine) {
-      const float pen =
+      t.p1 =
           (same ? skipcost : fminf(50.0f, skipcost)) + extra_penalty(gapcost);
-      test = (Sj + bonus_f) - pen;
     } else {  // mismatch
-      const float gc = (float)(gapcost < 99999 ? gapcost : 99999);
-      test = (Sj + bonus_f) - (skipcost + 0.5f * log2f(gc + 1.0f));
+      const int gc = gapcost < 99999 ? gapcost : 99999;
+      t.p1 = skipcost + 0.5f * log2_int(gc + 1, prm.log2_lut);
     }
   }
-  if (local && neg && bonus <= 0) test = kNeg;
-  return Pair{test, colinear, bonus};
+  if (local && neg && bonus <= 0) t.flags |= kKill;
+  return t;
+}
+
+// test(i, j) from S[j] and the pair's S-free terms
+__device__ __forceinline__ float apply_terms(float Sj, const Terms& t,
+                                             float skip) {
+  const float p0 = (t.flags & kUseSkip) ? skip : 0.0f;
+  const float test = (((Sj - p0) + t.bonus) - t.p1) - t.p2;
+  return (t.flags & kKill) ? kNeg : test;
 }
 
 // (t, s, j) lexicographic "greater than": the reference's argmax with

@@ -35,11 +35,14 @@ def resolve_device(name: str = "cuda") -> torch.device:
 _count_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``.  Kernel wrappers call this right
+def count_launch(wrapper, shape=None) -> None:
+    """Add one to ``wrapper.launches`` (and, given the launch's shape, to
+    its entry in ``wrapper.shapes``).  Kernel wrappers call this right
     where they launch their kernel, and nowhere else."""
     with _count_lock:
         wrapper.launches += 1
+        if shape is not None:
+            wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

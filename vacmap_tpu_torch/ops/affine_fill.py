@@ -675,7 +675,7 @@ class TorchFillAligner:
 
     def __init__(self, buckets: Sequence[int] = (256, 512), match=2,
                  mismatch=-4, o1=4, e1=2, o2=24, e2=1,
-                 max_batch: int = 4096, device="cpu",
+                 max_batch: int = 4096, *, device,
                  banded: Optional[bool] = None):
         self.buckets = sorted(buckets)
         self.kw = dict(match=match, mismatch=mismatch, o1=o1, e1=e1,

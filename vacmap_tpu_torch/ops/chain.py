@@ -15,6 +15,14 @@ version ``chain_scores_batch_ref`` on CPU tensors.
 ``chain_scores_batch_warm`` is the warm-start (frontier-carry) DP of the
 asm streaming chain: csrc/chain_dp_large.cu on CUDA tensors,
 ``chain_scores_batch_warm_ref`` on CPU tensors.
+
+Both kernels finish rows in tiles (csrc/chain_tile.cuh).
+``chain_scores_batch_tiled_ref`` and ``chain_scores_batch_warm_tiled_ref``
+compute the DP in plain PyTorch the way the kernels do (S-free pair
+terms, then apply; partial bests over a split of the candidates below
+the tile; the in-tile walk; no candidate at or past the row on a sorted
+read; the row-at-a-time route for an unsorted read), so that the
+decomposition is held bit for bit to the plain versions where no card is.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from .chain_ref import ChainResult
 
 NEG = -1e30
 VARIANTS = ("global", "global_nocov", "refund", "fine", "mismatch")
-MAX_N = 8192  # chain_dp.cu keeps N anchors + N scores in shared memory
+MAX_N = 8192  # chain_dp.cu keeps N anchors + N scores in shared memory (per CTA)
 # per-call anchors of TorchChainBackend (chain_dp_large.cu above MAX_N) and
 # per-block anchors of TorchStreamChainBackend, as in the reference
 MAX_ANCHORS = 65536
@@ -46,14 +54,31 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+_DIVISORS = {}
+
+
+def _divisors(device: torch.device):
+    """(100.0, 1000.0) as 0-dim f32 tensors on ``device``.  On a CUDA
+    tensor torch turns a division by a Python scalar into a multiplication
+    by its reciprocal, one ulp away from the reference's (and the
+    kernels') true division now and then; a tensor divisor is divided by."""
+    if device not in _DIVISORS:
+        _DIVISORS[device] = (
+            torch.tensor(100.0, dtype=torch.float32, device=device),
+            torch.tensor(1000.0, dtype=torch.float32, device=device))
+    return _DIVISORS[device]
+
+
 def _extra_penalty(gapcost: torch.Tensor) -> torch.Tensor:
     g = torch.clamp_min(gapcost.float(), 1.0)
     gf = gapcost.float()
+    hundred, thousand = _divisors(gf.device)
     return torch.minimum(
         torch.full_like(gf, 36.0),
         torch.minimum(
             30.0 + 0.5 * torch.log(g),
-            torch.clamp_max(gf / 100.0, 10.0) + torch.clamp_max(gf / 1000.0, 30.0),
+            torch.clamp_max(gf / hundred, 10.0)
+            + torch.clamp_max(gf / thousand, 30.0),
         ),
     )
 
@@ -70,11 +95,10 @@ def _gapcost_colinear(gapcost: torch.Tensor, kcoef: float,
                        torch.zeros_like(lg))
 
 
-def _pair_scores(ai, Aj, Sj, skip_i, maxdiff_i, kcoef, maxgap, skipcost,
-                 variant, asm_geo):
-    """chain_jax._pair_scores on (B, N) tensors: ai holds (B, 1) columns,
-    Aj (B, N) ones.  Returns (test, colinear, bonus)."""
-    local = variant in ("fine", "mismatch")
+def _pair_geometry(ai, Aj, maxdiff_i, maxgap, asm_geo):
+    """The integer part of chain_jax._pair_scores, on any shapes that
+    broadcast (ai the rows, Aj the candidates).  Returns (neg, bonus,
+    readgap, same, gapcost, colinear)."""
     r_i, y_i, s_i, l_i = ai
     r_j, y_j, s_j, l_j = Aj
     raw_readgap = r_i - r_j - l_j
@@ -112,6 +136,16 @@ def _pair_scores(ai, Aj, Sj, skip_i, maxdiff_i, kcoef, maxgap, skipcost,
     refgap = torch.where(neg, refgap_neg, refgap_pos)
     gapcost = torch.abs(readgap - refgap)
     colinear = same & (refgap >= 0) & (readgap <= maxgap) & (gapcost <= maxdiff_i)
+    return neg, bonus, readgap, same, gapcost, colinear
+
+
+def _pair_scores(ai, Aj, Sj, skip_i, maxdiff_i, kcoef, maxgap, skipcost,
+                 variant, asm_geo):
+    """chain_jax._pair_scores on (B, N) tensors: ai holds (B, 1) columns,
+    Aj (B, N) ones.  Returns (test, colinear, bonus)."""
+    local = variant in ("fine", "mismatch")
+    neg, bonus, readgap, same, gapcost, colinear = _pair_geometry(
+        ai, Aj, maxdiff_i, maxgap, asm_geo)
 
     bonus_f = bonus.float()
     zero = torch.zeros_like(bonus_f)
@@ -231,14 +265,248 @@ def chain_scores_batch_ref(
     return S, P
 
 
+TILE = 64  # rows per tile: chain_dp_large.cu's kTile (chain_dp.cu takes 32)
+_INF = float("inf")
+
+
+def _pair_terms(ai, Aj, skip_i, maxdiff_i, kcoef, maxgap, skipcost, variant,
+                asm_geo):
+    """csrc/chain_pair.cuh::pair_terms: the part of test(i, j) that does
+    not need S[j].  Every branch of ``_pair_scores`` has the form
+    ``(((S[j] - p0) + bonus) - p1) - p2`` (p0 = skip_i on the global
+    non-colinear branch only, zeros where a branch has no such term:
+    ``x - 0.0`` is exact).  Returns (p0, p1, p2, bonus_f, kill, colinear);
+    ``kill`` marks test = NEG."""
+    local = variant in ("fine", "mismatch")
+    neg, bonus, readgap, same, gapcost, colinear = _pair_geometry(
+        ai, Aj, maxdiff_i, maxgap, asm_geo)
+    bonus_f = bonus.float()
+    zero = torch.zeros_like(bonus_f)
+    p1_col = _gapcost_colinear(gapcost, kcoef, local) + zero
+    p2_col = zero
+    if variant == "fine":
+        rg = torch.clamp_max(readgap, 99).float()
+        p2_col = torch.where(readgap > 0, _f32(0.1) * torch.log2(rg + 1.0),
+                             zero)
+    elif variant == "mismatch":
+        rgf = readgap.float()
+        lrg = torch.where(readgap >= 30, 0.5 * rgf,
+                          _f32(0.1) * torch.log2(rgf + 1.0))
+        p2_col = torch.where(readgap > 0, lrg, zero)
+    p0_sv = zero
+    if variant == "global":
+        p0_sv = skip_i + zero
+        p1_sv = _extra_penalty(gapcost)
+    elif variant == "refund":
+        p1_sv = skip_i + zero
+    elif variant == "fine":
+        p1_sv = torch.where(same, _f32(skipcost),
+                            _f32(min(50.0, skipcost))) + _extra_penalty(gapcost)
+    else:  # mismatch
+        gc = torch.clamp_max(gapcost, 99999).float()
+        p1_sv = _f32(skipcost) + 0.5 * torch.log2(gc + 1.0)
+    p0 = torch.where(colinear, zero, p0_sv)
+    p1 = torch.where(colinear, p1_col, p1_sv + zero)
+    p2 = torch.where(colinear, p2_col, zero)
+    kill = (neg & (bonus <= 0)) if local else torch.zeros_like(neg)
+    return p0, p1, p2, bonus_f, kill, colinear
+
+
+def _apply_terms(Sj, terms):
+    """csrc/chain_pair.cuh::apply_terms: test(i, j) from S[j] and the
+    pair's S-free terms, in the plain version's f32 operation order."""
+    p0, p1, p2, bonus_f, kill, _ = terms
+    test = (((Sj - p0) + bonus_f) - p1) - p2
+    return torch.where(kill, torch.full_like(test, NEG), test)
+
+
+def _lex_best(t, s, j, dim):
+    """The (t, s, j) lexicographic maximum along ``dim`` (the kernels'
+    better()): a total order, so any split of a reduction gives the same
+    winner.  An entry that is no candidate holds (-inf, -inf, -1)."""
+    m = t.max(dim=dim, keepdim=True).values
+    is_max = t == m
+    sb = torch.where(is_max, s, torch.full_like(s, -_INF)).max(
+        dim=dim, keepdim=True).values
+    cand = is_max & (s == sb)
+    jb = torch.where(cand, j, torch.full_like(j, -1)).max(dim=dim).values
+    return m.squeeze(dim), sb.squeeze(dim), jb
+
+
+def _masked(mask, t, s, j):
+    return (torch.where(mask, t, torch.full_like(t, -_INF)),
+            torch.where(mask, s, torch.full_like(s, -_INF)),
+            torch.where(mask, j, torch.full_like(j, -1)))
+
+
+def _tiled_dp(anchors, n_valid, skip_i, maxdiff_i, S, P, n_warm, row_lo,
+              row_hi, ledger, kcoef, maxgap, skipcost, variant, asm_geo,
+              tile, n_split):
+    """Rows [row_lo, row_hi) of barrier-sorted reads in tiles, updating S
+    and P in place.  Rows below n_warm are frozen (candidates, never
+    scored), rows at or past n_valid are left alone."""
+    B, N, _ = anchors.shape
+    dev = anchors.device
+    local = variant in ("fine", "mismatch")
+    barrier = anchors[:, :, 0] + (anchors[:, :, 3] if local else 0)
+    args = (kcoef, maxgap, skipcost, variant, asm_geo)
+    rows_b = torch.arange(B, device=dev)
+    if ledger:
+        fixed_pen = torch.zeros((B, N), dtype=torch.float32, device=dev)
+        pre_pen = torch.zeros((B, N), dtype=torch.float32, device=dev)
+
+    def refunded(t, terms, fp, pp):
+        ok = terms[5] & (fp < 0) & (fp + terms[3] >= 0)
+        return torch.where(ok, t + pp, t)
+
+    for i0 in range(row_lo, row_hi, tile):
+        T = min(tile, N - i0)
+        rows = slice(i0, i0 + T)
+        ai = tuple(anchors[:, rows, k].unsqueeze(2) for k in range(4))
+        sk = skip_i[:, rows].unsqueeze(2)
+        md = maxdiff_i[:, rows].unsqueeze(2)
+        bar_i = barrier[:, rows].unsqueeze(2)
+        # candidates below the tile hold their final S: partial bests over
+        # an interleaved split, then the split's reduction
+        parts = []
+        for k in range(n_split):
+            if k >= i0:
+                break
+            js = torch.arange(k, i0, n_split, device=dev)
+            Aj = tuple(anchors[:, js, c].unsqueeze(1) for c in range(4))
+            Sj = S[:, js].unsqueeze(1).expand(B, T, len(js))
+            terms = _pair_terms(ai, Aj, sk, md, *args)
+            t = _apply_terms(Sj, terms)
+            if ledger:
+                t = refunded(t, terms, fixed_pen[:, js].unsqueeze(1),
+                             pre_pen[:, js].unsqueeze(1))
+            mask = ((barrier[:, js].unsqueeze(1) < bar_i)
+                    & (js[None, None, :] < n_valid[:, None, None]))
+            jj = js.to(torch.int32)[None, None, :].expand(B, T, len(js))
+            parts.append(_lex_best(*_masked(mask, t, Sj, jj), dim=2))
+        if parts:
+            pt, ps, pj = _lex_best(*(torch.stack(x, dim=2)
+                                     for x in zip(*parts)), dim=2)
+        else:
+            pt = torch.full((B, T), -_INF, dtype=torch.float32, device=dev)
+            ps = pt.clone()
+            pj = torch.full((B, T), -1, dtype=torch.int32, device=dev)
+        # the S-free terms of the in-tile pairs (r, jr < r); ties in the
+        # barrier are common, so the barrier test stays
+        Ajt = tuple(anchors[:, rows, c].unsqueeze(1) for c in range(4))
+        terms_t = _pair_terms(ai, Ajt, sk, md, *args)
+        ridx = torch.arange(T, device=dev)
+        cand = ((barrier[:, rows].unsqueeze(1) < bar_i)
+                & (ridx[None, None, :] < ridx[None, :, None]))
+        jt = (i0 + ridx).to(torch.int32)[None, :].expand(B, T)
+        for r in range(T):
+            i = i0 + r
+            active = (i >= n_warm) & (i < n_valid)
+            if not bool(active.any()):
+                continue
+            terms = tuple(x[:, r, :] for x in terms_t)
+            St = S[:, rows]
+            t = _apply_terms(St, terms)
+            if ledger:
+                t = refunded(t, terms, fixed_pen[:, rows], pre_pen[:, rows])
+            t, s, j = _masked(cand[:, r, :], t, St, jt)
+            bt, _, bj = _lex_best(torch.cat([t, pt[:, r : r + 1]], 1),
+                                  torch.cat([s, ps[:, r : r + 1]], 1),
+                                  torch.cat([j, pj[:, r : r + 1]], 1), dim=1)
+            l_i = anchors[:, i, 3].float()
+            has_pred = bt > l_i
+            S[:, i] = torch.where(active, torch.where(has_pred, bt, l_i),
+                                  S[:, i])
+            P_i = torch.where(has_pred, bj, torch.full_like(bj, -1))
+            P[:, i] = torch.where(active, P_i, P[:, i])
+            if ledger:
+                pw = torch.clamp(P_i, 0, N - 1).long()
+                win = _pair_terms(
+                    tuple(anchors[:, i, c] for c in range(4)),
+                    tuple(anchors[rows_b, pw, c] for c in range(4)),
+                    skip_i[:, i], maxdiff_i[:, i], *args)
+                win_col, win_bonus = win[5], win[3]
+                fp_j = fixed_pen[rows_b, pw]
+                pp_j = pre_pen[rows_b, pw]
+                sk_i = skip_i[:, i]
+                cont = (fp_j < 0) & (fp_j + win_bonus < 0)
+                zero = torch.zeros_like(fp_j)
+                new_fp = torch.where(
+                    win_col, torch.where(cont, fp_j + win_bonus, zero),
+                    -sk_i + win_bonus)
+                new_pp = torch.where(win_col, torch.where(cont, pp_j, zero),
+                                     sk_i)
+                ok = has_pred & active
+                fixed_pen[:, i] = torch.where(ok, new_fp, zero)
+                pre_pen[:, i] = torch.where(ok, new_pp, zero)
+
+
+def _unsorted_reads(anchors, n_valid, n_warm, local):
+    """(B,) bool: a row in (n_warm, n_valid) has a smaller barrier than
+    the row before it."""
+    N = anchors.shape[1]
+    barrier = anchors[:, :, 0] + (anchors[:, :, 3] if local else 0)
+    jidx = torch.arange(1, N, dtype=torch.int32, device=anchors.device)
+    return ((barrier[:, 1:] < barrier[:, :-1])
+            & (jidx[None, :] > n_warm[:, None])
+            & (jidx[None, :] < n_valid[:, None])).any(dim=1)
+
+
+def chain_scores_batch_tiled_ref(
+    anchors: torch.Tensor, n_valid: torch.Tensor, skip_i: torch.Tensor,
+    maxdiff_i: torch.Tensor, *, kmersize: int = 15, maxdiff: int = 50,
+    maxgap: int = 1000, skipcost: float = 40.0, variant: str = "global",
+    tile: int = TILE, n_split: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``chain_scores_batch_ref`` computed the way csrc/chain_dp.cu does:
+    tiles of ``tile`` rows, the candidates below a tile reduced in
+    ``n_split`` parts (the warps and CTAs of the kernel), the in-tile walk
+    over S-free records.  A read whose barriers are not sorted takes the
+    row-at-a-time route, as in the kernel.  Equal to the plain version
+    bit for bit."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown chain variant {variant!r}")
+    asm_geo = variant == "global_nocov"
+    v = "global" if asm_geo else variant
+    B, N, _ = anchors.shape
+    dev = anchors.device
+    anchors = anchors.to(torch.int32)
+    n_valid = torch.clamp(n_valid.to(torch.int32), 0, N)
+    skip_i = skip_i.to(torch.float32)
+    maxdiff_i = maxdiff_i.to(torch.int32)
+    S = torch.zeros((B, N), dtype=torch.float32, device=dev)
+    P = torch.full((B, N), -1, dtype=torch.int32, device=dev)
+    if B == 0:
+        return S, P
+    n_warm = torch.zeros_like(n_valid)
+    bad = _unsorted_reads(anchors, n_valid, n_warm, v in ("fine", "mismatch"))
+    if bool(bad.any()):
+        S[bad], P[bad] = chain_scores_batch_ref(
+            anchors[bad], n_valid[bad], skip_i[bad], maxdiff_i[bad],
+            kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
+            skipcost=skipcost, variant=variant)
+    good = ~bad
+    if bool(good.any()):
+        Sg, Pg = S[good], P[good]
+        _tiled_dp(anchors[good], n_valid[good], skip_i[good], maxdiff_i[good],
+                  Sg, Pg, n_warm[good], 0, int(n_valid[good].max()),
+                  v == "refund", _f32(0.01 * kmersize), maxgap, skipcost, v,
+                  asm_geo, tile, n_split)
+        S[good], P[good] = Sg, Pg
+    return S, P
+
+
 def chain_scores_batch(
     anchors: torch.Tensor, n_valid: torch.Tensor, skip_i: torch.Tensor,
     maxdiff_i: torch.Tensor, *, kmersize: int = 15, maxdiff: int = 50,
     maxgap: int = 1000, skipcost: float = 40.0, variant: str = "global",
+    cluster: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact batched chaining DP; returns (S, P) of shape (B, N).  CPU
     tensors take the plain version; CUDA tensors launch the kernel (or
-    raise DeviceKernelError)."""
+    raise DeviceKernelError).  ``cluster`` is the number of CTAs that
+    share one read on the card (1, 2, 4 or 8; 0 lets the launch choose
+    from B); it changes no result."""
     kw = dict(kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
               skipcost=skipcost, variant=variant)
     dev = anchors.device
@@ -280,14 +548,15 @@ def chain_scores_batch(
         anchors.data_ptr(), n_valid.data_ptr(), skip_i.data_ptr(),
         maxdiff_i.data_ptr(), S.data_ptr(), P.data_ptr(), *ledger, B, N,
         VARIANTS.index(variant), _f32(0.01 * kmersize), int(maxgap),
-        _f32(skipcost), cuda_stream(dev))
+        _f32(skipcost), int(cluster), cuda_stream(dev))
     if rc != 0:
         raise DeviceKernelError(f"chain_dp kernel launch failed: cudaError {rc}")
-    count_launch(chain_scores_batch)
+    count_launch(chain_scores_batch, (variant, B, N))
     return S, P
 
 
 chain_scores_batch.launches = 0
+chain_scores_batch.shapes = {}  # (variant, B, N) -> launches
 
 
 def chain_scores_batch_warm_ref(
@@ -341,6 +610,46 @@ def chain_scores_batch_warm_ref(
     return S, P
 
 
+def chain_scores_batch_warm_tiled_ref(
+    anchors: torch.Tensor, n_valid: torch.Tensor, skip_i: torch.Tensor,
+    maxdiff_i: torch.Tensor, warm_S: torch.Tensor, warm_P: torch.Tensor,
+    n_warm: torch.Tensor, *, kmersize: int = 15, maxdiff: int = 50,
+    maxgap: int = 1000, skipcost: float = 40.0, variant: str = "global",
+    tile: int = TILE, n_split: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``chain_scores_batch_warm_ref`` computed the way
+    csrc/chain_dp_large.cu does: tiles from the smallest n_warm on,
+    frozen rows as candidates only, no ledger.  Rows past n_warm that are
+    not sorted by barrier raise DeviceKernelError, as the kernel's wrapper
+    does.  Equal to the plain version bit for bit."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown chain variant {variant!r}")
+    asm_geo = variant == "global_nocov"
+    v = "global" if asm_geo else variant
+    B, N, _ = anchors.shape
+    anchors = anchors.to(torch.int32)
+    n_valid = torch.clamp(n_valid.to(torch.int32), 0, N)
+    n_warm = torch.clamp(n_warm.to(torch.int32), 0, N)
+    skip_i = skip_i.to(torch.float32)
+    maxdiff_i = maxdiff_i.to(torch.int32)
+    warm_P = warm_P.to(torch.int32)
+    jidx = torch.arange(N, dtype=torch.int32, device=anchors.device)
+    S = warm_S.to(torch.float32).clone()
+    P = torch.where(jidx[None, :] < n_warm[:, None], warm_P,
+                    torch.full_like(warm_P, -1))
+    if B == 0 or N == 0:
+        return S, P
+    if bool(_unsorted_reads(anchors, n_valid, n_warm,
+                            v in ("fine", "mismatch")).any()):
+        raise DeviceKernelError(
+            "warm chain kernel: rows past n_warm are not sorted by barrier")
+    _tiled_dp(anchors, n_valid, skip_i, maxdiff_i, S, P, n_warm,
+              int(n_warm.min()), int(n_valid.max()), False,
+              _f32(0.01 * kmersize), maxgap, skipcost, v, asm_geo, tile,
+              n_split)
+    return S, P
+
+
 def chain_scores_batch_warm(
     anchors: torch.Tensor, n_valid: torch.Tensor, skip_i: torch.Tensor,
     maxdiff_i: torch.Tensor, warm_S: torch.Tensor, warm_P: torch.Tensor,
@@ -384,12 +693,8 @@ def chain_scores_batch_warm(
     # the rows to score, and the kernel's precondition: between n_warm and
     # n_valid the barrier never decreases (one small reduction and one
     # read-back per call, against a DP of N^2 / 2 pair scores)
-    local = variant in ("fine", "mismatch")
-    barrier = anchors[:, :, 0] + (anchors[:, :, 3] if local else 0)
-    jidx = torch.arange(1, N, dtype=torch.int32, device=dev)
-    unsorted = ((barrier[:, 1:] < barrier[:, :-1])
-                & (jidx[None, :] > n_warm[:, None])
-                & (jidx[None, :] < n_valid[:, None])).any()
+    unsorted = _unsorted_reads(anchors, n_valid, n_warm,
+                               variant in ("fine", "mismatch")).any()
     row_lo, row_hi, bad = torch.stack(
         [n_warm.min(), n_valid.max(), unsorted.to(torch.int32)]).tolist()
     if bad:
@@ -409,11 +714,12 @@ def chain_scores_batch_warm(
     if rc != 0:
         raise DeviceKernelError(
             f"chain_dp_warm kernel launch failed: cudaError {rc}")
-    count_launch(chain_scores_batch_warm)
+    count_launch(chain_scores_batch_warm, (variant, B, N))
     return S, P
 
 
 chain_scores_batch_warm.launches = 0
+chain_scores_batch_warm.shapes = {}  # (variant, B, N) -> launches
 
 
 def prepare_batch(anchor_list, variant: str, skipcost: float, maxdiff: int):
@@ -504,7 +810,7 @@ class TorchChainBackend:
     reference coordinate of 2^31 or more, and for the refund variant
     above MAX_N (its ledger exists only in chain_dp.cu)."""
 
-    def __init__(self, device="cpu", max_anchors: int = MAX_ANCHORS):
+    def __init__(self, device, max_anchors: int = MAX_ANCHORS):
         self.device = torch.device(device)
         self.max_anchors = max_anchors
 
@@ -532,7 +838,7 @@ class TorchStreamChainBackend:
     ``max_anchors``) and "coords" (a reference coordinate of 2^31 or
     more).  A failed device call raises DeviceKernelError."""
 
-    def __init__(self, device="cpu", max_anchors: int = MAX_STREAM_ANCHORS):
+    def __init__(self, device, max_anchors: int = MAX_STREAM_ANCHORS):
         self.device = torch.device(device)
         self.max_anchors = max_anchors
         self.calls = 0

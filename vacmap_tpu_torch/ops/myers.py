@@ -184,7 +184,7 @@ class TorchMyersAligner:
     ``PallasMyersAligner``): the fill service's edit aligner.  A launch
     carries exactly the pairs it is given, at most ``shape_b[T]``."""
 
-    def __init__(self, device="cpu", buckets=DEFAULT_BUCKETS,
+    def __init__(self, device, buckets=DEFAULT_BUCKETS,
                  shape_b: Optional[Dict[int, int]] = None):
         self.device = torch.device(device)
         self.buckets = tuple(sorted(buckets))

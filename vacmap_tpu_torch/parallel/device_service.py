@@ -35,7 +35,7 @@ class TorchAggregatingChainBackend:
     by the full parameter tuple.  A failed device call raises
     DeviceKernelError in every waiting caller."""
 
-    def __init__(self, device="cpu", max_wait_ms: float = 4.0):
+    def __init__(self, device, max_wait_ms: float = 4.0):
         self.device = torch.device(device)
         self._max_wait = max_wait_ms / 1e3
         self._lock = threading.Lock()

@@ -37,7 +37,7 @@ N_BUCKETS = (512, 2048, 8192)
 
 
 class TorchBatchExecutor:
-    def __init__(self, mapper: Mapper, device="cpu",
+    def __init__(self, mapper: Mapper, device,
                  max_device_batch: int = 128, device_fills: bool = True,
                  device_local_dp: bool = True):
         self.mapper = mapper
