@@ -26,7 +26,9 @@ the final line):
      2,800 anchors, co-diagonal seeds merged, and a frontier of a few),
      cold (no frontier) at N = 16,384 (phase 6's 480 kb contig), and at
      N = 32,768 (a block of repeats or of diverged sequence, whose seeds
-     do not merge); then 2050
+     do not merge); the three fill kernels at B = 256 and N (or T) = 256
+     and 512, the banded one also at the executor's launch size, B = 16;
+     then 2050
      realistic fill jobs against the host aligner's CIGARs, through
      TorchFillAligner and through the in-process fill service
      (AsyncFillAligner) on its default route and on the scan route
@@ -767,7 +769,7 @@ def main() -> int:
                            nbytes(*x, torch.as_tensor(got)))
         say(f"kernel {name} B={len(pairs)} N={N}: planes "
             f"{'byte-identical' if err == 0 else 'DIFFER'}{extra} kernel "
-            f"{ms:.3f} ms (wrapper {wrap_ms:.3f} ms) plain {plain_ms:.1f} ms "
+            f"{ms:.4f} ms (wrapper {wrap_ms:.4f} ms) plain {plain_ms:.1f} ms "
             f"bound {b_ms:.4f} ms ({b_by}, {cells} cells) [{card}]")
         if err:
             fail(f"{name} N={N} planes differ from its plain version")
@@ -805,6 +807,14 @@ def main() -> int:
         res = []
         for T in (256, 512):
             pairs = fill_pairs(rng, gcodes, 256, T // 4, T - 100,
+                               random_frac=0.05)
+            res.append(fill_phase("fill_banded", af.fill_rowruns_banded,
+                                  af.fill_rowruns_banded_ref, T, pairs, True))
+        # the executor's launch shape (about 16 jobs a launch); a generator
+        # of its own, so that every later phase keeps its inputs
+        rng_b16 = np.random.default_rng(SEED + 6)
+        for T in (256, 512):
+            pairs = fill_pairs(rng_b16, gcodes, 16, T // 4, T - 100,
                                random_frac=0.05)
             res.append(fill_phase("fill_banded", af.fill_rowruns_banded,
                                   af.fill_rowruns_banded_ref, T, pairs, True))

@@ -20,7 +20,9 @@ of 20 kb), after building the index once:
      torch.profiler with the stage trace on (--debug): device time by
      kernel and copy (in all and per launch), the device's busy share
      of that run's wall time, the chain kernel's launches by (variant,
-     B, N), and the host stage spans summed over the finishing threads; then
+     B, N), the banded fill kernel's launches by (B, T) with its device
+     time a launch, and the host stage spans summed over the finishing
+     threads; then
      the same with VACMAP_TPU_EDIT_DEVICE=1 (device time by kernel only);
   3. asm: chip_smoke.py's two contigs (2 Mb streaming, 480 kb per call)
      mapped by `-mode asm` as processes of their own for --runs rounds,
@@ -72,7 +74,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from vacmap_tpu_torch import _build, cli, trace
-    from vacmap_tpu_torch.ops import chain
+    from vacmap_tpu_torch.ops import affine_fill, chain
 
     card = subprocess.run(cs.SMI_QUERY, capture_output=True, text=True,
                           timeout=60).stdout.strip()
@@ -133,6 +135,7 @@ def main() -> int:
 
         trace.reset()
         chain.chain_scores_batch.shapes.clear()
+        affine_fill.fill_rowruns_banded.shapes.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -146,6 +149,7 @@ def main() -> int:
         spans = trace.summary()
         trace.enable(False)
         executor_shapes = dict(chain.chain_scores_batch.shapes)
+        banded_shapes = dict(affine_fill.fill_rowruns_banded.shapes)
         os.environ["VACMAP_TPU_EDIT_DEVICE"] = "1"
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -205,6 +209,13 @@ def main() -> int:
            f"{sum(executor_shapes.values())} in all: "
            + "; ".join(f"{v} B={b} N={n}: {k}" for (v, b, n), k
                        in sorted(executor_shapes.items())))
+    n_banded = sum(banded_shapes.values())
+    banded_us = sum(us for key, _, us in rows if "fill_banded" in key)
+    cs.say(f"fill_banded launches by (B, T), {n_banded} in all, "
+           f"{sum(b * k for (b, _), k in banded_shapes.items())} jobs; device "
+           f"{banded_us / 1e3:.3f} ms, {banded_us / 1e3 / max(n_banded, 1):.4f} "
+           f"ms a launch: " + "; ".join(f"B={b} T={t}: {k}" for (b, t), k
+                                        in sorted(banded_shapes.items())))
     cs.say("host stage spans (summed over threads):\n" + spans)
     rows = sorted(device_events(torch, edit_prof), key=lambda r: -r[2])
     busy = sum(us for _, _, us in rows) / 1e3

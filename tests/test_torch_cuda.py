@@ -204,21 +204,99 @@ def test_full_fill_kernel_matches_plain(dev, N):
     assert torch.equal(got.cpu(), fill_rowruns_ref(*x).cpu())
 
 
-@pytest.mark.parametrize("T", [256, 512])
-def test_banded_fill_kernel_matches_plain(dev, T):
+def _banded_inputs(pairs, T):
+    from vacmap_tpu_torch.ops.affine_fill import make_qshift
+
+    tT, tQ, lens = _planes(pairs, T)
+    return tT, make_qshift(tQ, lens[:, 0], lens[:, 1], T), lens
+
+
+def _band_ok(pairs):
+    return [(t, q) for t, q in pairs if abs(len(t) - len(q)) <= 95]
+
+
+def _escalating_pairs(rng, n, T):
+    """Unrelated pairs (about one in five sets ESCALATE at W = 128: the
+    walk touches a band edge or an edge cell is its row's maximum), kept
+    where the plain version flags them."""
+    from vacmap_tpu_torch.ops.affine_fill import fill_rowruns_banded_ref
+
+    cand = []
+    for _ in range(8 * n):
+        L = int(rng.integers(100, T - 40))
+        cand.append((rng.integers(0, 4, L).astype(np.uint8),
+                     rng.integers(0, 4, L + int(rng.integers(-20, 21))).astype(np.uint8)))
+    planes = fill_rowruns_banded_ref(
+        *(torch.from_numpy(a) for a in _banded_inputs(cand, T))).numpy()
+    flagged = [p for p, ex in zip(cand, planes[:, T]) if ex & 0x80]
+    assert len(flagged) >= n
+    return flagged[:n]
+
+
+def _banded_case(case):
+    """(pairs, T) of one card case of the banded kernel."""
+    rng = np.random.default_rng(33 + int(case) if case.isdigit()
+                                else list(case.encode()))
+    if case.isdigit():  # T = 100 (not a multiple of 32), 256, 512, 1024
+        T = int(case)
+        return _band_ok(_pairs(rng, 160 if T <= 512 else 48, 1,
+                               T - 100 if T > 200 else T)), T
+    if case == "dq_pm95":  # the band's extreme offsets
+        pairs = []
+        for k in range(48):
+            L = int(rng.integers(100, 150))
+            t = rng.integers(0, 4, L).astype(np.uint8)
+            d = (95, -95, 94, -94)[k % 4]
+            if d > 0:
+                p = int(rng.integers(0, L))
+                q = np.concatenate([t[:p], rng.integers(0, 4, d).astype(np.uint8), t[p:]])
+            else:
+                p = int(rng.integers(0, L + d))
+                q = np.concatenate([t[:p], t[p - d:]])
+            pairs.append((t, q.astype(np.uint8)))
+        assert {len(q) - len(t) for t, q in pairs} == {95, -95, 94, -94}
+        return pairs, 256
+    if case == "t_len_1":
+        return [(rng.integers(0, 4, 1).astype(np.uint8),
+                 rng.integers(0, 4, int(rng.integers(1, 97))).astype(np.uint8))
+                for _ in range(64)], 256
+    if case == "escalate":
+        return _escalating_pairs(rng, 40, 256), 256
+    if case == "mixed_20_400":  # jobs of one launch that end apart
+        return [(t, q) for k in range(48) for t, q in _band_ok(
+            _pairs(rng, 1, 20 if k % 2 else 400, 20 if k % 2 else 400, random_frac=0.0))], 512
+    B = int(case[1:])  # "B1", "B16", "B300"
+    pairs = []
+    while len(pairs) < B:
+        pairs += _band_ok(_pairs(rng, B, 1, 156))
+    return pairs[:B], 256
+
+
+@pytest.mark.parametrize("case", ["256", "512", "100", "1024", "dq_pm95",
+                                  "t_len_1", "escalate", "mixed_20_400",
+                                  "B1", "B16", "B300"])
+def test_banded_fill_kernel_matches_plain(dev, case):
+    """csrc/fill_banded.cu: planes equal to the plain version's, byte for
+    byte, ESCALATE included."""
     from vacmap_tpu_torch.ops.affine_fill import (
-        fill_rowruns_banded, fill_rowruns_banded_ref, make_qshift,
+        fill_rowruns_banded, fill_rowruns_banded_ref,
     )
 
-    rng = np.random.default_rng(33 + T)
-    pairs = [(t, q) for t, q in _pairs(rng, 160, 1, T - 100) if abs(len(t) - len(q)) <= 95]
-    tT, tQ, lens = _planes(pairs, T)
-    qs = make_qshift(tQ, lens[:, 0], lens[:, 1], T)
-    x = [torch.from_numpy(a).to(dev) for a in (tT, qs, lens)]
+    pairs, T = _banded_case(case)
+    x = [torch.from_numpy(a).to(dev) for a in _banded_inputs(pairs, T)]
+    B = len(pairs)
+    want = fill_rowruns_banded_ref(*x).cpu()
+    before = fill_rowruns_banded.launches
+    shape_before = fill_rowruns_banded.shapes.get((B, T), 0)
     got = fill_rowruns_banded(*x)
     torch.cuda.synchronize()
-    want = fill_rowruns_banded_ref(*x).cpu()
+    assert fill_rowruns_banded.launches == before + 1
+    assert fill_rowruns_banded.shapes[(B, T)] == shape_before + 1
     assert torch.equal(got.cpu(), want)
+    flagged = int(((want[:, T] & 0x80) != 0).sum())
+    if case == "escalate":
+        assert flagged == B
+    print(f"fill_banded {case} B={B} T={T}: equal, {flagged} escalated")
 
 
 def test_aligner_on_card_matches_host(dev):

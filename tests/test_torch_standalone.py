@@ -42,6 +42,21 @@ def test_no_import_of_the_jax_package(path):
         assert needle not in text, (path.relative_to(REPO), needle)
 
 
+PORT_DIRS = sorted({p.parent for p in (REPO / "vacmap_tpu_torch").rglob("*.py")})
+
+
+@pytest.mark.parametrize(
+    "path", PORT_DIRS, ids=[str(p.relative_to(REPO)) for p in PORT_DIRS])
+def test_every_port_directory_is_an_installed_package(path):
+    """setup.py's find_packages returns every directory of the port that
+    holds Python code, so an installed port imports what a checkout does."""
+    from setuptools import find_packages
+
+    found = find_packages(str(REPO), include=["vacmap_tpu_torch",
+                                              "vacmap_tpu_torch.*"])
+    assert ".".join(path.relative_to(REPO).parts) in found
+
+
 def _blocked(code, cwd, timeout=300):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")

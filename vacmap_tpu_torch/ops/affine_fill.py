@@ -601,11 +601,12 @@ def fill_rowruns_banded(tT: torch.Tensor, qs: torch.Tensor, lens: torch.Tensor,
         match, mismatch, o1, e1, o2, e2, cuda_stream(dev))
     if rc != 0:
         raise DeviceKernelError(f"fill_banded kernel launch failed: cudaError {rc}")
-    count_launch(fill_rowruns_banded)
+    count_launch(fill_rowruns_banded, (B, T))
     return planes
 
 
 fill_rowruns_banded.launches = 0
+fill_rowruns_banded.shapes = {}  # (B, T) -> launches
 
 
 def fill_traceback(tT: torch.Tensor, tQ: torch.Tensor, t_len: torch.Tensor,
