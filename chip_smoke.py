@@ -27,7 +27,8 @@ the final line):
      cold (no frontier) at N = 16,384 (phase 6's 480 kb contig), and at
      N = 32,768 (a block of repeats or of diverged sequence, whose seeds
      do not merge); the three fill kernels at B = 256 and N (or T) = 256
-     and 512, the banded one also at the executor's launch size, B = 16;
+     and 512, each also at the executor's launch size (B = 16 banded,
+     B = EXEC_FULL_B full-width);
      then 2050
      realistic fill jobs against the host aligner's CIGARs, through
      TorchFillAligner and through the in-process fill service
@@ -121,6 +122,7 @@ PEAK_OPS = 67e12      # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 OPS_PER_PAIR = 80     # one pair score of the chain DP (csrc/chain_pair.cuh)
 OPS_PER_CELL = 30     # one cell of the two-piece affine fill
+EXEC_FULL_B = 4       # the executor's full-width launches (profile_port.py)
 EDIT_CHILD = "--edit-transport-child"  # this script's own child mode
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
@@ -796,6 +798,12 @@ def main() -> int:
             fail(f"fill_scan N={N} op streams differ from its plain version")
         return err, ms, wrap_ms, plain_ms, b_ms, b_by
 
+    # the executor's full-width launch shape; a generator of its own, so
+    # that every other phase keeps its inputs
+    rng_full = np.random.default_rng(SEED + 7)
+    full_exec = {N: fill_pairs(rng_full, gcodes, EXEC_FULL_B, N // 4, N,
+                               big_indel=0.3, random_frac=0.05)
+                 for N in (256, 512)}
     try:
         res = []
         for N in (256, 512):
@@ -803,6 +811,9 @@ def main() -> int:
                                random_frac=0.05)
             res.append(fill_phase("fill_full", af.fill_rowruns,
                                   af.fill_rowruns_ref, N, pairs, False))
+        for N in (256, 512):
+            res.append(fill_phase("fill_full", af.fill_rowruns,
+                                  af.fill_rowruns_ref, N, full_exec[N], False))
         summary["fill_full"] = summarize(res)
         res = []
         for T in (256, 512):
@@ -824,6 +835,8 @@ def main() -> int:
             pairs = fill_pairs(rng, gcodes, 256, N // 4, N, big_indel=0.3,
                                random_frac=0.05)
             res.append(scan_phase(N, pairs))
+        for N in (256, 512):
+            res.append(scan_phase(N, full_exec[N]))
         summary["fill_scan"] = summarize(res)
     except SystemExit:
         raise

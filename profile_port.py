@@ -20,8 +20,8 @@ of 20 kb), after building the index once:
      torch.profiler with the stage trace on (--debug): device time by
      kernel and copy (in all and per launch), the device's busy share
      of that run's wall time, the chain kernel's launches by (variant,
-     B, N), the banded fill kernel's launches by (B, T) with its device
-     time a launch, and the host stage spans summed over the finishing
+     B, N), the banded and full-width fill kernels' launches by (B, T)
+     and (B, N) with their device time a launch, and the host stage spans summed over the finishing
      threads; then
      the same with VACMAP_TPU_EDIT_DEVICE=1 (device time by kernel only);
   3. asm: chip_smoke.py's two contigs (2 Mb streaming, 480 kb per call)
@@ -136,6 +136,7 @@ def main() -> int:
         trace.reset()
         chain.chain_scores_batch.shapes.clear()
         affine_fill.fill_rowruns_banded.shapes.clear()
+        affine_fill.fill_rowruns.shapes.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -150,6 +151,7 @@ def main() -> int:
         trace.enable(False)
         executor_shapes = dict(chain.chain_scores_batch.shapes)
         banded_shapes = dict(affine_fill.fill_rowruns_banded.shapes)
+        full_shapes = dict(affine_fill.fill_rowruns.shapes)
         os.environ["VACMAP_TPU_EDIT_DEVICE"] = "1"
         try:
             with profile(activities=[ProfilerActivity.CPU,
@@ -209,13 +211,15 @@ def main() -> int:
            f"{sum(executor_shapes.values())} in all: "
            + "; ".join(f"{v} B={b} N={n}: {k}" for (v, b, n), k
                        in sorted(executor_shapes.items())))
-    n_banded = sum(banded_shapes.values())
-    banded_us = sum(us for key, _, us in rows if "fill_banded" in key)
-    cs.say(f"fill_banded launches by (B, T), {n_banded} in all, "
-           f"{sum(b * k for (b, _), k in banded_shapes.items())} jobs; device "
-           f"{banded_us / 1e3:.3f} ms, {banded_us / 1e3 / max(n_banded, 1):.4f} "
-           f"ms a launch: " + "; ".join(f"B={b} T={t}: {k}" for (b, t), k
-                                        in sorted(banded_shapes.items())))
+    for name, shapes, dim in (("fill_banded", banded_shapes, "T"),
+                              ("fill_full", full_shapes, "N")):
+        n = sum(shapes.values())
+        us = sum(us for key, _, us in rows if name in key)
+        cs.say(f"{name} launches by (B, {dim}), {n} in all, "
+               f"{sum(b * k for (b, _), k in shapes.items())} jobs; device "
+               f"{us / 1e3:.3f} ms, {us / 1e3 / max(n, 1):.4f} ms a launch: "
+               + "; ".join(f"B={b} {dim}={t}: {k}" for (b, t), k
+                           in sorted(shapes.items())))
     cs.say("host stage spans (summed over threads):\n" + spans)
     rows = sorted(device_events(torch, edit_prof), key=lambda r: -r[2])
     busy = sum(us for _, _, us in rows) / 1e3

@@ -193,15 +193,68 @@ def test_chain_kernel_ties_ragged_and_unsorted_reads(dev, variant):
     _chain_on_card_against_plain(dev, alist, variant, (0, 1, 4))
 
 
-@pytest.mark.parametrize("N", [256, 512])
-def test_full_fill_kernel_matches_plain(dev, N):
+FULL_CASES = ["256", "512", "64", "160", "1024", "t_len_1", "q_len_1",
+              "full_512", "ins_gt_255", "mixed_20_500", "B1", "B16", "B300"]
+
+
+def _full_case(case, seed):
+    """(pairs, N) of one card case of the full-width kernels: N = 64 to
+    1024 (one to four warps a job), one-base sides, t_len = q_len = N,
+    insertion runs of 256 to 460 bases in one row (ex bit 1), jobs of 20
+    and 500 rows in one launch, and B = 1, 16, 300."""
+    rng = np.random.default_rng(list(case.encode()) + [seed])
+    if case.isdigit():
+        N = int(case)
+        return _pairs(rng, 48 if N > 512 else 96, 1, N), N
+    if case == "t_len_1":
+        return [(rng.integers(0, 4, 1).astype(np.uint8),
+                 rng.integers(0, 4, int(rng.integers(1, 257))).astype(np.uint8))
+                for _ in range(64)], 256
+    if case == "q_len_1":
+        return [(b, a) for a, b in _full_case("t_len_1", seed)[0]], 256
+    if case == "full_512":
+        pairs = []
+        for _ in range(32):
+            t = rng.integers(0, 4, 512).astype(np.uint8)
+            q = t.copy()
+            m = rng.random(512) < 0.08
+            q[m] = rng.integers(0, 4, int(m.sum()))
+            pairs.append((t, q))
+        return pairs, 512
+    if case == "ins_gt_255":  # the target matches the query's head; the
+        # rest of the query (no base of the target) is one run in its last row
+        pairs = []
+        for _ in range(32):
+            t = rng.integers(0, 2, int(rng.integers(1, 40))).astype(np.uint8)
+            run = 2 + rng.integers(0, 2, int(rng.integers(256, 512 - len(t) + 1)))
+            pairs.append((t, np.concatenate([t, run]).astype(np.uint8)))
+        return pairs, 512
+    if case == "mixed_20_500":  # jobs of one launch that end apart
+        return [(t, q) for k in range(48) for t, q in _pairs(
+            rng, 1, 20 if k % 2 else 500, 20 if k % 2 else 500, random_frac=0.0)], 512
+    B = int(case[1:])  # "B1", "B16", "B300"
+    return _pairs(rng, B, 1, 256), 256
+
+
+@pytest.mark.parametrize("case", FULL_CASES)
+def test_full_fill_kernel_matches_plain(dev, case):
+    """csrc/fill_full.cu: planes equal to the plain version's, byte for
+    byte, in one launch counted under its (B, N)."""
     from vacmap_tpu_torch.ops.affine_fill import fill_rowruns, fill_rowruns_ref
 
-    rng = np.random.default_rng(32 + N)
-    x = [torch.from_numpy(a).to(dev) for a in _planes(_pairs(rng, 96, 1, N), N)]
+    pairs, N = _full_case(case, 32)
+    B = len(pairs)
+    x = [torch.from_numpy(a).to(dev) for a in _planes(pairs, N)]
+    want = fill_rowruns_ref(*x).cpu()
+    before = fill_rowruns.launches
+    shape_before = fill_rowruns.shapes.get((B, N), 0)
     got = fill_rowruns(*x)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), fill_rowruns_ref(*x).cpu())
+    assert fill_rowruns.launches == before + 1
+    assert fill_rowruns.shapes[(B, N)] == shape_before + 1
+    assert torch.equal(got.cpu(), want)
+    if case == "ins_gt_255":
+        assert ((want[:, N:].numpy() >> 1) & 1).any(axis=1).all()
 
 
 def _banded_inputs(pairs, T):
@@ -310,20 +363,26 @@ def test_aligner_on_card_matches_host(dev):
     assert [g.cigar for g in got] == [native.ops_to_cigar(w) for w in want]
 
 
-@pytest.mark.parametrize("N", [256, 512])
-def test_scan_fill_kernel_matches_plain(dev, N):
+@pytest.mark.parametrize("case", FULL_CASES)
+def test_scan_fill_kernel_matches_plain(dev, case):
+    """csrc/fill_scan.cu: op streams equal to the plain version's, byte
+    for byte, in one launch counted under its (B, N)."""
     from vacmap_tpu_torch.ops.affine_fill import fill_traceback, fill_traceback_ref
 
-    rng = np.random.default_rng(35 + N)
-    tT, tQ, lens = _planes(_pairs(rng, 256, 1, N), N)
+    pairs, N = _full_case(case, 35)
+    B = len(pairs)
+    tT, tQ, lens = _planes(pairs, N)
     x = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
          for a in (tT, tQ, lens[:, 0], lens[:, 1])]
+    want = fill_traceback_ref(*x).cpu()
     before = fill_traceback.launches
+    shape_before = fill_traceback.shapes.get((B, N), 0)
     got = fill_traceback(*x)
     torch.cuda.synchronize()
     assert fill_traceback.launches == before + 1
-    assert got.shape == (N // 2, 256)
-    assert torch.equal(got.cpu(), fill_traceback_ref(*x).cpu())
+    assert fill_traceback.shapes[(B, N)] == shape_before + 1
+    assert got.shape == (N // 2, B)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("scan", [False, True])

@@ -1,91 +1,142 @@
 // Full-width global two-piece affine fill with a row-run traceback: one
-// thread block per job, one thread per column.
+// warp per 128 columns of a job for the fill, one warp for the walk, one
+// job a block.
 //
-// Replaces vacmap_tpu/ops/affine_pallas.py::_fill_tb_kernel (DP body in
-// _fill_body), launched there by _fill_and_rowruns.  Scoring: match 2,
-// mismatch -4, gap cost min(4 + 2l, 24 + l); op priority DIAG > E1 > E2
-// > F1 > F2; ext flags 8/16/32/64.  Output per job: one (2N,) uint8 row,
-// lanes [0, N) lo = n_ins & 255 and [N, 2N) ex = is_diag | (n_ins >> 8)
-// << 1 for matrix row l+1 at lane l (the planes native.decode_rowruns
-// reads).
+// Replaces vacmap_tpu/ops/affine_pallas.py::_fill_tb_kernel (:172, body
+// _fill_body :73), launched there by _fill_and_rowruns (:739 ->
+// pallas_call :767).  Scoring: match 2, mismatch -4, gap cost
+// min(4 + 2l, 24 + l); op priority DIAG > E1 > E2 > F1 > F2; ext flags
+// 8/16/32/64.  Output per job: one (2N,) uint8 row, lanes [0, N) lo =
+// n_ins & 255 and [N, 2N) ex = is_diag | (n_ins >> 8) << 1 for matrix
+// row l+1 at lane l (the planes native.decode_rowruns reads).
 //
-// What bounds it on an H100: the fill is a chain of N dependent rows, and
-// each row needs two prefix maxima across all N columns (the horizontal
-// gap F = prefix max of H0 + j*e), so the latency per row is a block-wide
-// scan plus three barriers; the arithmetic (about 40 f32 ops per cell) is
-// small.  The traceback needs one byte per cell: 64 KB at N = 256, 256 KB
-// at N = 512, more than a block's shared memory at 512.  The design:
-//   * the fill itself is fill_rows.cuh (shared with fill_scan.cu);
-//   * the per-cell bytes go to device memory (coalesced N-byte row
-//     stores; the wrapper allocates them and chunks the batch so one
-//     launch stays under 1 GiB), where they stay in L2 for the walk;
-//   * after the fill, thread 0 walks the row-run traceback from (t_len,
-//     q_len) and the block writes the planes.
-// Values are f32 with the reference's NEG = -1e9 so that unreachable
-// cells round exactly as there (the plane bytes are compared exactly).
+// What bounds it on an H100: one job's chain, not bytes or operations (a
+// launch from the executor holds four jobs and lasts as long as the
+// longest).  The chain is tl dependent rows, then a walk of up to
+// tl + ql dependent steps.  The design:
+//   * the fill is fill_rows.cuh's anti-diagonal wavefront (shared with
+//     fill_scan.cu): four columns a lane, a row a step in each lane, the
+//     warps of a job handing their last column on through shared memory,
+//     no scan and no barrier inside it; F by its recurrence in int32
+//     maxima, which gives the reference's bytes exactly (see there);
+//   * the per-cell bytes go to device memory (a row's C bytes a lane in
+//     one store; the wrapper allocates the table and chunks the batch so
+//     one launch's table stays under 1 GiB), where they stay in L2;
+//   * warp 0 then walks the row-run traceback from (t_len, q_len), every
+//     lane alike, from a ring of rows in shared memory that cp.async
+//     fills a few chunks of rows ahead (fill_rows.cuh::RowRing), so a
+//     step is a shared-memory read and not an L2 round trip, and each
+//     row's first byte is read while the row before ends; then the warp
+//     writes the planes.
 
 #include "fill_rows.cuh"
 
 namespace {
 
-// The row's exit op (one diag or del) after its insertion run; updates
-// the traceback state s and returns is_diag.
-__device__ __forceinline__ bool exit_op(int b, int j, int& s) {
-  const int eff = s > 0 ? s : (b & 7);
-  const bool forced = j <= 0;
-  const bool is_m = !forced && eff == 0;
-  const int extbit = 8 << (eff - 1 > 0 ? eff - 1 : 0);
-  s = (!forced && eff >= 1 && eff <= 2 && (b & extbit)) ? eff : 0;
-  return is_m;
+// Row-run traceback from (tl, ql) in state H over the ring's rows; the
+// planes of row r go to lo_sh[r - 1], ex_sh[r - 1].  Every lane of the
+// warp runs it.  The byte a row starts on is read while the row before
+// ends: both candidates (a diagonal keeps the column, a deletion moves
+// one right) before the exit op picks one, so that only an insertion run
+// waits on a read.
+__device__ __forceinline__ void walk_rowruns(const RowRing& ring, int tl,
+                                             int ql, uint8_t* lo_sh,
+                                             uint8_t* ex_sh) {
+  ring.start(tl);
+  ring.enter(tl, tl);
+  const uint8_t* brow = ring.row(tl);
+  int j = ql, s = 0;
+  int bj = j > 0 ? brow[j - 1] : 0;
+  for (int r = tl; r >= 1; --r) {
+    int n_ins = 0;
+    if (s == 0 && j > 0 && (bj & 7) >= 3) {  // an insertion run
+      int eff = bj & 7;
+      do {
+        // the F-run continuation flag lives at the current cell
+        const int rs = (bj & (eff == 3 ? 32 : 64)) ? eff : 0;
+        --j;
+        ++n_ins;
+        bj = j > 0 ? brow[j - 1] : 0;
+        eff = rs > 0 ? rs : (bj & 7);
+      } while (j > 0 && eff >= 3);
+    }
+    // the next row's two candidates, read before the exit op decides
+    const uint8_t* next = ring.row(r > 1 ? r - 1 : r);
+    const int next_m = j >= 2 ? next[j - 2] : 0;
+    const int next_d = j >= 1 ? next[j - 1] : 0;
+    // the row's exit op (one diag or del), from the byte the run stopped on
+    const int eff = s > 0 ? s : (bj & 7);
+    const bool forced = j <= 0;
+    const bool is_m = !forced && eff == 0;
+    s = (!forced && (eff == 1 || eff == 2) && (bj & (eff << 3))) ? eff : 0;
+    lo_sh[r - 1] = (uint8_t)(n_ins & 255);
+    ex_sh[r - 1] = (uint8_t)((is_m ? 1 : 0) | ((n_ins >> 8) << 1));
+    j -= is_m;
+    bj = is_m ? next_m : next_d;
+    if (r > 1) {
+      ring.enter(r - 1, tl);
+      brow = next;
+    }
+  }
+  ring.finish();
 }
 
-__global__ void fill_full_kernel(const uint8_t* __restrict__ tT,
-                                 const uint8_t* __restrict__ tQ,
-                                 const int* __restrict__ lens,
-                                 uint8_t* __restrict__ bits,
-                                 uint8_t* __restrict__ planes, int N,
-                                 Scoring sc) {
-  __shared__ FillShared sm;
-  __shared__ uint8_t lo_sh[kMaxN], ex_sh[kMaxN];
-
+template <int C>
+__global__ void __launch_bounds__(32 * kMaxN / (32 * kMaxCols))
+fill_full_kernel(const uint8_t* __restrict__ tT, const uint8_t* __restrict__ tQ,
+                 const int* __restrict__ lens, uint8_t* __restrict__ bits,
+                 uint8_t* __restrict__ planes, int N, Scoring sc) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const Layout L = layout(N, blockDim.x >> 5, ring_bytes(N), 2 * N);
   const int b = blockIdx.x;
-  const int t = threadIdx.x;  // lane l = t holds column j = t + 1
   const int tl = clamp_len(lens[2 * b], N);
   const int ql = clamp_len(lens[2 * b + 1], N);
   uint8_t* bitsb = bits + (size_t)b * N * N;
-  lo_sh[t] = 0;
-  ex_sh[t] = 0;
-  fill_rows(tT + (size_t)b * N, tQ[(size_t)b * N + t], tl, N, sc, sm, bitsb);
+  int4* xch = reinterpret_cast<int4*>(smem + L.xch);
+  int* ready = reinterpret_cast<int*>(smem + L.ready);
+  stage(tT + (size_t)b * N, N, sc, smem + L.tsh, xch, ready);
+  fill_rows<C>(tQ + (size_t)b * N, smem + L.tsh, tl, N, sc, xch, ready,
+               bitsb);
+  __syncthreads();  // every warp's bytes are in the table
+  if (threadIdx.x >= 32) return;
 
-  if (t == 0) {
-    // row-run traceback from (t_len, q_len) in state H
-    int j = ql, s = 0;
-    for (int r = tl; r >= 1; --r) {
-      const uint8_t* brow = bitsb + (size_t)(r - 1) * N;
-      int n_ins = 0;
-      if (s == 0) {  // insertion run (E-state rows skip it)
-        int rs = 0;
-        while (j > 0) {
-          const int bj = brow[j - 1];
-          const int eff = rs > 0 ? rs : (bj & 7);
-          if (eff < 3) break;
-          // F-run continuation flag lives at the current cell
-          rs = (bj & (eff == 3 ? 32 : 64)) ? eff : 0;
-          --j;
-          ++n_ins;
-        }
-      }
-      const int bj = j > 0 ? brow[j - 1] : 0;
-      const bool is_m = exit_op(bj, j, s);
-      if (is_m) --j;
-      lo_sh[r - 1] = (uint8_t)(n_ins & 255);
-      ex_sh[r - 1] = (uint8_t)((is_m ? 1 : 0) | ((n_ins >> 8) << 1));
-    }
+  uint8_t* lo_sh = smem + L.out;
+  uint8_t* ex_sh = lo_sh + N;
+  if (tl > 0) {
+    const RowRing ring{smem + L.ring, bitsb, N};
+    walk_rowruns(ring, tl, ql, lo_sh, ex_sh);
   }
-  __syncthreads();
+  __syncwarp();
   uint8_t* out = planes + (size_t)b * 2 * N;
-  out[t] = lo_sh[t];
-  out[N + t] = ex_sh[t];
+  for (int r = threadIdx.x; r < N; r += 32) {
+    const bool live = r < tl;
+    out[r] = live ? lo_sh[r] : 0;
+    out[N + r] = live ? ex_sh[r] : 0;
+  }
+}
+
+template <int C>
+cudaError_t launch_cols(int c, const void* tT, const void* tQ,
+                        const void* lens, void* bits, void* planes, int B,
+                        int N, const Scoring& sc, cudaStream_t stream) {
+  if constexpr (C > kMaxCols) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (c != C)
+      return launch_cols<2 * C>(c, tT, tQ, lens, bits, planes, B, N, sc,
+                                stream);
+    const int W = warps_a_job(N);
+    const int smem = layout(N, W, ring_bytes(N), 2 * N).total;
+    cudaError_t err = cudaFuncSetAttribute(
+        fill_full_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    fill_full_kernel<C><<<B, 32 * W, smem, stream>>>(
+        static_cast<const uint8_t*>(tT), static_cast<const uint8_t*>(tQ),
+        static_cast<const int*>(lens), static_cast<uint8_t*>(bits),
+        static_cast<uint8_t*>(planes), N, sc);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -99,10 +150,7 @@ extern "C" int fill_full_launch(const void* tT, const void* tQ,
                                 int e1, int o2, int e2, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   if (N <= 0 || N > kMaxN || (N & 31)) return (int)cudaErrorInvalidValue;
-  fill_full_kernel<<<B, N, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(tT), static_cast<const uint8_t*>(tQ),
-      static_cast<const int*>(lens), static_cast<uint8_t*>(bits),
-      static_cast<uint8_t*>(planes), N,
-      make_scoring(match, mismatch, o1, e1, o2, e2));
-  return (int)cudaGetLastError();
+  return (int)launch_cols<1>(cols_a_lane(N), tT, tQ, lens, bits, planes, B, N,
+                             make_scoring(match, mismatch, o1, e1, o2, e2),
+                             static_cast<cudaStream_t>(stream));
 }

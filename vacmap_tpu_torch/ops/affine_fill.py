@@ -20,7 +20,9 @@ write one (2N,) uint8 row per job: lanes [0, N) lo = n_ins & 255 and
 the planes ``native.decode_rowruns`` decodes; the scan kernel writes the
 stream ``native.decode_tb_ops`` decodes.  Values are f32 with the
 reference's NEG = -1e9, so out-of-band and unreachable cells round
-exactly as there.
+exactly as there; the full-width kernels compute in int32, which gives
+the same bytes for these scores (csrc/fill_rows.cuh; the CPU twin
+``_fill_bits_wavefront_ref`` is held to ``_fill_bits_ref`` by the tests).
 
 Inputs are uint8 character planes (no 2-bit packing): a base code 4
 mismatches everything, as in the host aligner.
@@ -282,20 +284,114 @@ def _fill_bits_ref(tT: torch.Tensor, tQ: torch.Tensor, rows: int, *, match,
     return bits
 
 
+def _fill_bits_wavefront_ref(tT: torch.Tensor, tQ: torch.Tensor, rows: int,
+                             *, cols: Optional[int] = None, match=2,
+                             mismatch=-4, o1=4, e1=2, o2=24,
+                             e2=1) -> torch.Tensor:
+    """``_fill_bits_ref`` computed as csrc/fill_rows.cuh computes it, for
+    the CPU tests only: int32 cells (NEG = -10**9), lane l of N / cols
+    lanes (cols = N / 32 unless given) holds columns cols*l+1 ..
+    cols*l+cols, and at step s (1 .. rows + lanes - 1) lane l computes row
+    s - l.  Within a lane the horizontal gaps run by their recurrence
+    F(j) = max(F(j-1) - e, H0(j-1) - (o + e)); the left lane's last column
+    (its H, H0, F1, F2 of the step before, and its H of the step before
+    that as the diagonal) starts each lane's row, column 0 (H(i, 0) =
+    -gapf(i), no F) lane 0's.  Each maximum also says which side won
+    (a >= b, as ``__vibmax_s32``), and the op and ext flags are read from
+    those.  Same (max(rows, 1), B, N) uint8 table."""
+    B, N = tT.shape
+    C = cols or N // 32
+    L = N // C
+    assert L * C == N, (N, C)
+    dev = tT.device
+    i32 = torch.int32
+    neg = -10**9
+    o1e1, o2e2 = o1 + e1, o2 + e2
+
+    def gapf(x):
+        return torch.minimum(o1 + e1 * x, o2 + e2 * x)
+
+    def bmax(a, b):  # (max(a, b), a >= b)
+        return torch.maximum(a, b), a >= b
+
+    qc = tQ.to(i32).reshape(B, L, C)
+    tchars = tT.to(i32)
+    H = (-gapf(torch.arange(1, N + 1, dtype=i32, device=dev))).reshape(
+        1, L, C).expand(B, L, C).clone()  # row 0
+    E1 = torch.full((B, L, C), neg, dtype=i32, device=dev)
+    E2 = torch.full((B, L, C), neg, dtype=i32, device=dev)
+    lane = torch.arange(L, device=dev)
+    j0 = (C * lane).to(i32)
+    # the left column's H of the row before (dH) and of this row (rH),
+    # H0, F1, F2 of this row: for step 1, H(0, j0) and lane 0's column 0
+    dH = torch.where(j0 == 0, 0, -gapf(j0)).expand(B, L).clone()
+    h01 = -gapf(torch.tensor(1, dtype=i32, device=dev))
+    rH = torch.where(lane == 0, h01, dH)
+    lH0 = torch.where(lane == 0, h01, 0).to(i32).expand(B, L).clone()
+    lF1 = torch.full((B, L), neg, dtype=i32, device=dev)
+    lF2 = torch.full((B, L), neg, dtype=i32, device=dev)
+    bits = torch.zeros((max(rows, 1), B, L, C), dtype=torch.uint8, device=dev)
+    for s in range(1, rows + L):
+        i = s - lane  # each lane's row
+        act = (i >= 1) & (i <= rows)
+        tc = tchars[:, (i - 1).clamp(0, N - 1)]  # (B, L)
+        tm = torch.where(tc < 4, tc, 256)  # code 4 matches nothing
+        hd, h0l, f1, f2 = dH, lH0, lF1, lF2
+        cells = []
+        for k in range(C):
+            hold = H[:, :, k].clone()
+            diag = hd + torch.where(qc[:, :, k] == tm, match, mismatch)
+            E1n, pe1 = bmax(E1[:, :, k] - e1, hold - o1e1)
+            E2n, pe2 = bmax(E2[:, :, k] - e2, hold - o2e2)
+            m12, p12 = bmax(E1n, E2n)
+            H0, pd = bmax(diag, m12)
+            F1, pf1 = bmax(f1 - e1, h0l - o1e1)
+            F2, pf2 = bmax(f2 - e2, h0l - o2e2)
+            mF, pf = bmax(F1, F2)
+            Hn, ph = bmax(H0, mF)
+            # DIAG > E1 > E2 > F1 > F2: the first maximum each winner won
+            op = torch.where(ph, torch.where(pd, 0, torch.where(p12, 1, 2)),
+                             torch.where(pf, 3, 4))
+            cells.append(op | torch.where(pe1, 8, 0) | torch.where(pe2, 16, 0)
+                         | torch.where(pf1, 32, 0) | torch.where(pf2, 64, 0))
+            hd, h0l, f1, f2 = hold, H0, F1, F2
+            H[:, :, k] = torch.where(act, Hn, hold)
+            E1[:, :, k] = torch.where(act, E1n, E1[:, :, k])
+            E2[:, :, k] = torch.where(act, E2n, E2[:, :, k])
+        on = act.nonzero()[:, 0]
+        row = torch.stack(cells, dim=2).to(torch.uint8)  # (B, L, C)
+        bits[i[on] - 1, :, on] = row[:, on].transpose(0, 1)
+        # the left column of each lane's next row; lane 0's is column 0
+        h0n = -gapf(torch.tensor(s + 1, dtype=i32, device=dev))
+        dH = rH
+        rH = torch.cat([h0n.expand(B, 1), H[:, :-1, C - 1]], dim=1)
+        lH0 = torch.cat([h0n.expand(B, 1), h0l[:, :-1]], dim=1)
+        lF1 = torch.cat([torch.full_like(f1[:, :1], neg), f1[:, :-1]], dim=1)
+        lF2 = torch.cat([torch.full_like(f2[:, :1], neg), f2[:, :-1]], dim=1)
+    return bits.reshape(max(rows, 1), B, N)
+
+
 def fill_rowruns_ref(tT: torch.Tensor, tQ: torch.Tensor, lens: torch.Tensor,
                      *, match=2, mismatch=-4, o1=4, e1=2, o2=24,
                      e2=1) -> torch.Tensor:
     """Plain version of ``fill_rowruns``: (B, N) target/query planes and
     (B, 2) lens (t_len, q_len) -> (B, 2N) uint8 lo|ex planes."""
-    B, N = tT.shape
-    dev = tT.device
-    tl = lens[:, 0].to(torch.int64)
-    ql = lens[:, 1].to(torch.int64)
-    rows = int(tl.max()) if B else 0  # no output depends on later rows
+    # no output depends on rows past the longest t_len
+    rows = int(lens[:, 0].max()) if len(lens) else 0
     bits = _fill_bits_ref(tT, tQ, rows, match=match, mismatch=mismatch,
                           o1=o1, e1=e1, o2=o2, e2=e2)
+    return _rowrun_walk(bits, lens)
 
-    # row-run traceback: rows t_len..1 in lockstep across jobs
+
+def _rowrun_walk(bits: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Row-run traceback of a (rows, B, N) byte table from (t_len, q_len)
+    -> (B, 2N) uint8 lo|ex planes: rows t_len..1 in lockstep across
+    jobs."""
+    _, B, N = bits.shape
+    dev = bits.device
+    tl = lens[:, 0].to(torch.int64)
+    ql = lens[:, 1].to(torch.int64)
+    rows = int(tl.max()) if B else 0
     lo = torch.zeros((B, N), dtype=torch.int64, device=dev)
     ex = torch.zeros((B, N), dtype=torch.int64, device=dev)
     j = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -342,14 +438,23 @@ def fill_traceback_ref(tT: torch.Tensor, tQ: torch.Tensor,
     ``_fill_and_traceback``: step s of job b in bits 2(s % 4).. of byte
     (s // 4, b); 0 = M, 1 = I, 2 = D from the alignment end back to
     (0, 0), then 3."""
-    B, N = tT.shape
-    dev = tT.device
+    N = tT.shape[1]
+    rows = int(t_len.clamp(0, N).max()) if len(t_len) else 0
+    bits = _fill_bits_ref(tT, tQ, rows, match=match, mismatch=mismatch,
+                          o1=o1, e1=e1, o2=o2, e2=e2)
+    return _op_walk(bits, t_len, q_len)
+
+
+def _op_walk(bits: torch.Tensor, t_len: torch.Tensor,
+             q_len: torch.Tensor) -> torch.Tensor:
+    """Lockstep op walk of a (rows, B, N) byte table from (t_len, q_len)
+    -> the packed (2N/4, B) uint8 op stream."""
+    _, B, N = bits.shape
+    dev = bits.device
     S = 2 * N
     tl = t_len.to(torch.int64).clamp(0, N)
     ql = q_len.to(torch.int64).clamp(0, N)
-    rows = int(tl.max()) if B else 0
-    flat = _fill_bits_ref(tT, tQ, rows, match=match, mismatch=mismatch,
-                          o1=o1, e1=e1, o2=o2, e2=e2).reshape(-1).to(torch.int64)
+    flat = bits.reshape(-1).to(torch.int64)
     lanes = torch.arange(B, dtype=torch.int64, device=dev)
     i, j = tl.clone(), ql.clone()
     state = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -561,11 +666,12 @@ def fill_rowruns(tT: torch.Tensor, tQ: torch.Tensor, lens: torch.Tensor, *,
             match, mismatch, o1, e1, o2, e2, stream)
         if rc != 0:
             raise DeviceKernelError(f"fill_full kernel launch failed: cudaError {rc}")
-        count_launch(fill_rowruns)
+        count_launch(fill_rowruns, (c1 - c0, N))
     return planes
 
 
 fill_rowruns.launches = 0
+fill_rowruns.shapes = {}  # (B, N) -> launches
 
 
 def fill_rowruns_banded(tT: torch.Tensor, qs: torch.Tensor, lens: torch.Tensor,
@@ -648,11 +754,12 @@ def fill_traceback(tT: torch.Tensor, tQ: torch.Tensor, t_len: torch.Tensor,
             c1 - c0, N, B, match, mismatch, o1, e1, o2, e2, stream)
         if rc != 0:
             raise DeviceKernelError(f"fill_scan kernel launch failed: cudaError {rc}")
-        count_launch(fill_traceback)
+        count_launch(fill_traceback, (c1 - c0, N))
     return packed
 
 
 fill_traceback.launches = 0
+fill_traceback.shapes = {}  # (B, N) -> launches
 
 
 # ---------------------------------------------------------------------------
