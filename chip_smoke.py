@@ -35,13 +35,14 @@ the final line):
      (AsyncFillAligner) on its default route and on the scan route
      (VACMAP_TPU_FILL_SCAN=1); the Myers edit-distance kernel at its three
      buckets' full widths (genome spans against copies at 5% and 30%
-     error, length ratios to 1.4, some with an N) against its plain
-     version on the card and, on the pairs without N, against the native
-     Myers, all exactly equal; then 1,780 edit jobs through the service's
-     edit kind on both transports (in this process, and a service
-     process of its own behind a FillClient): every routed distance equal
-     to the native one, exactly the oversized, empty-sided and N pairs
-     answered None;
+     error, length ratios to 1.4, some with an N), then at the divergence
+     filter's launch size (B = 3, texts near T) at each bucket, against
+     its plain version on the card and, on the pairs without N, against
+     the native Myers, all exactly equal; then 1,780 edit jobs through
+     the service's edit kind on both transports (in this process, and a
+     service process of its own behind a FillClient): every routed
+     distance equal to the native one, exactly the oversized,
+     empty-sided and N pairs answered None;
   5. end to end: the port's executor (--backend jax) maps the reads in
      this process; then three CLI processes of their own, each timed
      from its start to its exit: the port's host path (4 fork
@@ -86,10 +87,11 @@ too) and the bytes (each input read once, each output written once) over
 with an earlier barrier than i, counted from the inputs) at 80 operations
 a pair; a fill's are its cells (t_len x q_len, or t_len x 128 band lanes)
 at 30 operations a cell; an edit distance's are its text columns times
-its pattern's 64-bit words at the 64-bit integer operations csrc/myers.cu
-spends on a word in a column (counted in the source, asked of the
-library).  No single PyTorch call computes the chain DP, the affine fill
-with its traceback or an edit distance, so "library" is null.  The line
+its pattern's 64-bit words at 29 64-bit integer operations a word and
+column (OPS_PER_WORD_STEP: the recurrence's own count, the same whatever
+kernel computes it).  No single PyTorch call computes the chain DP, the
+affine fill with its traceback or an edit distance, so "library" is
+null.  The line
 before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
 CUDA card is visible or the package is not beside this script.
@@ -122,6 +124,10 @@ PEAK_OPS = 67e12      # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 OPS_PER_PAIR = 80     # one pair score of the chain DP (csrc/chain_pair.cuh)
 OPS_PER_CELL = 30     # one cell of the two-piece affine fill
+# one 64-bit pattern word of Myers' recurrence in one text column: Eq
+# and X, the add with its carry in and out (8), Xh, Ph, Mh and the score
+# bit (11), the two shifts with their bits in, Xv, Pv, Mv (10)
+OPS_PER_WORD_STEP = 29
 EXEC_FULL_B = 4       # the executor's full-width launches (profile_port.py)
 EDIT_CHILD = "--edit-transport-child"  # this script's own child mode
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -843,13 +849,11 @@ def main() -> int:
     except Exception as err:  # noqa: BLE001
         fail(f"fill phase raised: {err!r}")
 
-    ops_word_step = int(_build.library().myers_ops_per_word_step())
-
-    def myers_phase(T, Wd, B):
+    def myers_phase(T, Wd, B, rng=rng, n_max=None):
         """csrc/myers.cu at one bucket's full width against its plain
-        version on the card (one step a text column: at the largest bucket
-        only on the pairs with a text under T / 2) and against the native
-        Myers on the pairs without N."""
+        version on the card (one step a text column: on the pairs with a
+        text up to n_max, by default T, or T / 2 at the largest bucket)
+        and against the native Myers on the pairs without N."""
         pairs = myers_pairs(rng, gcodes, T, Wd * 32, B)
         x = [torch.from_numpy(a).to(dev) for a in myers.pack_jobs(pairs, T, Wd)]
         launch = lambda: myers.myers_distances(*x)  # noqa: E731
@@ -857,7 +861,8 @@ def main() -> int:
         wrap_ms, got = wall_ms(torch, launch, 5)
         ms = device_ms(torch, launch, 3)
         got = got.cpu().numpy()
-        n_max = T if T <= 8192 else T // 2
+        if n_max is None:
+            n_max = T if T <= 8192 else T // 2
         sub = [i for i, (t, _) in enumerate(pairs) if len(t) <= n_max]
         idx = torch.as_tensor(sub, device=dev)
         plain_ms, want = wall_ms(
@@ -868,26 +873,35 @@ def main() -> int:
         nat = np.array([native.edit_distance_native(*pairs[i]) for i in clean])
         nat_bad = [i for i, d in zip(clean, nat) if got[i] != d]
         steps = sum(len(t) * ((len(q) + 63) // 64) for t, q in pairs)
-        b_ms, b_by = bound(steps * ops_word_step,
+        b_ms, b_by = bound(steps * OPS_PER_WORD_STEP,
                            nbytes(*x, torch.as_tensor(got)))
+        longest = max(len(t) for t, _ in pairs)
         ok = err == 0 and not nat_bad
         say(f"kernel myers B={B} T={T} pattern<={Wd * 32}: "
             f"{len(sub)}/{B} pairs held to the plain version (max abs "
             f"difference {err}), {len(clean)}/{B} without N held to the native "
             f"Myers ({len(clean) - len(nat_bad)} equal); distances "
-            f"{int(got.min())}..{int(got.max())}; kernel {ms:.3f} ms (wrapper "
-            f"{wrap_ms:.3f} ms) plain {plain_ms:.1f} ms ({len(sub)} pairs) "
-            f"bound {b_ms:.4f} ms ({b_by}, {steps} word-steps at "
-            f"{ops_word_step} operations) [{card}] {'ok' if ok else 'MISMATCH'}")
+            f"{int(got.min())}..{int(got.max())}; kernel {ms:.4f} ms (wrapper "
+            f"{wrap_ms:.4f} ms; {ms * 1e6 / longest:.1f} ns a column of the "
+            f"longest text, {longest}) plain {plain_ms:.1f} ms ({len(sub)} "
+            f"pairs) bound {b_ms:.5f} ms ({b_by}, {steps} word-steps at "
+            f"{OPS_PER_WORD_STEP} operations) [{card}] "
+            f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"myers T={T} disagrees with its plain version or the native "
                  f"Myers (pairs {nat_bad[:10]})")
         return err, ms, wrap_ms, plain_ms, b_ms, b_by
 
     try:
-        summary["myers"] = summarize([myers_phase(2048, 128, 256),
-                                      myers_phase(8192, 384, 64),
-                                      myers_phase(20480, 896, 32)])
+        res = [myers_phase(2048, 128, 256), myers_phase(8192, 384, 64),
+               myers_phase(20480, 896, 32)]
+        # the divergence filter's launch size: about three pairs of texts
+        # near T (a generator of its own, so that later phases keep their
+        # inputs)
+        rng_b3 = np.random.default_rng(SEED + 9)
+        res += [myers_phase(T, Wd, 3, rng_b3, T) for T, Wd in
+                myers.DEFAULT_BUCKETS]
+        summary["myers"] = summarize(res)
     except SystemExit:
         raise
     except Exception as err:  # noqa: BLE001

@@ -111,51 +111,67 @@ def sources_of(tree: str, csrc: Path, variant: str, design: str):
     return texts
 
 
-def build_all(builds):
-    """builds: {label: {file: text}} -> {label: loaded ctypes library}."""
+def build_all(builds, units=("fill_full.cu", "fill_scan.cu"),
+              entries=("fill_full_launch", "fill_scan_launch"), out=OUT):
+    """builds: {label: {file: text}} -> ({label: loaded ctypes library},
+    [labels that failed to build]).  Every unit of every build compiles
+    at once (one nvcc each, with the package's flags) under out/label,
+    and each build's objects link into one library with ``entries``
+    bound by their C signatures."""
     from vacmap_tpu_torch import _build
 
-    shutil.rmtree(OUT, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
     nvcc = _build._nvcc()
     procs = {}
     for label, texts in builds.items():
-        d = OUT / label
+        d = out / label
         d.mkdir(parents=True)
         for f, text in texts.items():
             (d / f).write_text(text)
-        objs = []
-        for f in ("fill_full.cu", "fill_scan.cu"):
-            o = d / (f[:-3] + ".o")
-            objs.append(o)
+        for f in units:
             procs[(label, f)] = subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(o), str(d / f)],
+                [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(d / (f[:-3] + ".o")),
+                 str(d / f)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     logs = {k: (p.communicate()[0], p.returncode) for k, p in procs.items()}
     libs, failed = {}, []
     for label in builds:
-        bad = [(f, out) for f in ("fill_full.cu", "fill_scan.cu")
-               for out, rc in [logs[(label, f)]] if rc]
+        bad = [(f, log) for f in units
+               for log, rc in [logs[(label, f)]] if rc]
         if bad:  # the other builds are still timed; the run fails at its end
             cs.say(f"BUILD FAILED {label}/{bad[0][0]}:\n{bad[0][1][-3000:]}")
             failed.append(label)
             continue
-        for f in ("fill_full.cu", "fill_scan.cu"):
-            out, _ = logs[(label, f)]
-            for line in out.splitlines():
+        for f in units:
+            for line in logs[(label, f)][0].splitlines():
                 if "registers" in line or "spill" in line:
                     cs.say(f"ptxas {label}/{f}: {line.strip()}")
-        so = OUT / label / "libfill.so"
-        d = OUT / label
-        r = subprocess.run([nvcc, "-shared", "-o", str(so), str(d / "fill_full.o"),
-                            str(d / "fill_scan.o")], capture_output=True, text=True)
+        d = out / label
+        so = d / "libprobe.so"
+        r = subprocess.run([nvcc, "-shared", "-o", str(so),
+                            *(str(d / (f[:-3] + ".o")) for f in units)],
+                           capture_output=True, text=True)
         if r.returncode:
             cs.fail(f"link failed for {label}: {r.stderr[-2000:]}")
         lib = ctypes.CDLL(str(so))
-        for name in ("fill_full_launch", "fill_scan_launch"):
+        for name in entries:
             getattr(lib, name).argtypes = _build._SIGNATURES[name]
             getattr(lib, name).restype = ctypes.c_int
         libs[label] = lib
     return libs, failed
+
+
+def time_in_turns(torch, calls, reps):
+    """calls: {label: fn} -> {label: [device ms a call, first pass, then
+    the reverse pass]}: every call timed once in order and once in reverse
+    (device ms per call, CUDA events around calls queued behind a GPU
+    sleep), each after one warm-up call."""
+    order = list(calls)
+    times = {label: [] for label in order}
+    for label in order + order[::-1]:
+        calls[label]()  # warm-up
+        times[label].append(cs.device_ms(torch, calls[label], reps))
+    return times
 
 
 def main() -> int:
@@ -242,12 +258,9 @@ def main() -> int:
                            " the plain version")
                     if not same:
                         wrong.append(f"{kname} {label} B={B} N={N}")
-            times = {label: [] for label in order}
-            for label in order + order[::-1]:
-                lib = libs[label]
-                fn(lib)  # warm-up
-                times[label].append(cs.device_ms(torch, lambda: fn(lib),
-                                                 args.reps))
+            times = time_in_turns(
+                torch, {label: (lambda lib=libs[label]: fn(lib))
+                        for label in order}, args.reps)
             for label in order:
                 t = times[label]
                 cs.say(f"  {kname} {label:20s} B={B} N={N}: "

@@ -23,7 +23,9 @@ of 20 kb), after building the index once:
      B, N), the banded and full-width fill kernels' launches by (B, T)
      and (B, N) with their device time a launch, and the host stage spans summed over the finishing
      threads; then
-     the same with VACMAP_TPU_EDIT_DEVICE=1 (device time by kernel only);
+     the same with VACMAP_TPU_EDIT_DEVICE=1: device time by kernel, and
+     the Myers kernel's launches by (B, T) with its device time a launch
+     and each dispatch's longest text and largest pattern in 64-bit words;
   3. asm: chip_smoke.py's two contigs (2 Mb streaming, 480 kb per call)
      mapped by `-mode asm` as processes of their own for --runs rounds,
      host path and `--backend jax --device cuda` in turns, then once in
@@ -74,7 +76,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from vacmap_tpu_torch import _build, cli, trace
-    from vacmap_tpu_torch.ops import affine_fill, chain
+    from vacmap_tpu_torch.ops import affine_fill, chain, myers
 
     card = subprocess.run(cs.SMI_QUERY, capture_output=True, text=True,
                           timeout=60).stdout.strip()
@@ -153,6 +155,17 @@ def main() -> int:
         banded_shapes = dict(affine_fill.fill_rowruns_banded.shapes)
         full_shapes = dict(affine_fill.fill_rowruns.shapes)
         os.environ["VACMAP_TPU_EDIT_DEVICE"] = "1"
+        # each edit launch's longest text and largest pattern in words
+        edit_sizes = []
+        dispatch = myers.TorchMyersAligner.dispatch_jobs
+
+        def logged_dispatch(self, jobs, T, Wd):
+            edit_sizes.append((len(jobs), T, max(len(t) for t, _ in jobs),
+                               max((len(q) + 63) // 64 for _, q in jobs)))
+            return dispatch(self, jobs, T, Wd)
+
+        myers.TorchMyersAligner.dispatch_jobs = logged_dispatch
+        myers.myers_distances.shapes.clear()
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as edit_prof:
@@ -163,6 +176,8 @@ def main() -> int:
                 edit_wall = time.perf_counter() - t0
         finally:
             os.environ.pop("VACMAP_TPU_EDIT_DEVICE", None)
+            myers.TorchMyersAligner.dispatch_jobs = dispatch
+        edit_shapes = dict(myers.myers_distances.shapes)
         if rc != 0:
             cs.fail(f"profiled port run with the edit route exited {rc}")
 
@@ -229,6 +244,18 @@ def main() -> int:
         cs.say(f"  device {us / 1e3:10.3f} ms  n={n:6d}  {key[:90]}")
     cs.say(f"device time (kernels and copies) {busy:.1f} ms of wall "
            f"{edit_wall * 1e3:.1f} ms: busy share {busy / (edit_wall * 1e3):.4f}")
+    n = sum(edit_shapes.values())
+    us = sum(us for key, _, us in rows if "myers" in key)
+    cs.say(f"myers launches by (B, T), {n} in all (the service's prewarm "
+           f"included), {sum(b * k for (b, _), k in edit_shapes.items())} "
+           f"pairs; device {us / 1e3:.3f} ms, {us / 1e3 / max(n, 1):.4f} ms a "
+           "launch: " + "; ".join(f"B={b} T={t}: {k}" for (b, t), k
+                                   in sorted(edit_shapes.items())))
+    for T in sorted({t for _, t, _, _ in edit_sizes}):
+        sizes = sorted((n, w) for _, t, n, w in edit_sizes if t == T)
+        cs.say(f"  T={T}: (longest text, largest pattern in 64-bit words) of "
+               f"each of its {len(sizes)} dispatches: "
+               + " ".join(f"({n},{w})" for n, w in sizes))
     for line in asm_lines:
         cs.say(line)
     rows = sorted(device_events(torch, asm_prof), key=lambda r: -r[2])

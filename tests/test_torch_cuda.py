@@ -9,6 +9,8 @@ need on the card's machine.  For the same reason this file imports no
 other test module: its anchor generators mirror tests/test_chain.py's.)
 """
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -635,6 +637,83 @@ def test_myers_kernel_matches_plain_and_native(dev, T, Wd, B, n_plain):
         native.edit_distance_native(*pairs[i]) for i in clean]
     ta = myers.TorchMyersAligner(dev)
     assert ta.distance_batch(pairs) == got.tolist()
+
+
+def _edit_pair(rng, n, m, err=0.05):
+    """A random text of n bases and a pattern of m bases copied from it
+    (repeated as needed) with substitutions at rate ``err``."""
+    t = rng.integers(0, 4, n).astype(np.uint8)
+    q = np.resize(t, m).copy()
+    hit = rng.random(m) < err
+    q[hit] = rng.integers(0, 4, int(hit.sum()))
+    return t, q
+
+
+def _wavefront_case(case):
+    """(bucket T, Wd, pairs) of one boundary case of csrc/myers.cu: a block
+    of ceil(Wd / 64) warps, one 64-bit pattern word a thread."""
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    if case.startswith("m"):  # top word at a warp or block edge
+        m = int(case[1:])
+        T, Wd = {2047: (2048, 128), 2048: (2048, 128), 2049: (2048, 128),
+                 4097: (8192, 384), 28672: (20480, 896)}[m]
+        return T, Wd, [_edit_pair(rng, n, m) for n in (1, T // 4, 2000)]
+    if case == "n1":
+        return 8192, 384, [_edit_pair(rng, 1, m) for m in (1, 64, 65, 5000)]
+    if case.startswith("nT"):  # texts of exactly T columns
+        T = int(case[2:])
+        Wd = {2048: 128, 8192: 384, 20480: 896}[T]
+        return T, Wd, [_edit_pair(rng, T, m) for m in (
+            (T, int(1.4 * T), 1) if T < 20480 else (64, 1500, 1))]
+    if case.startswith("B"):  # the divergence filter's launch size
+        return 2048, 128, [_edit_pair(rng, int(rng.integers(1800, 2049)),
+                                      int(rng.integers(1400, 2800)), 0.2)
+                           for _ in range(int(case[1:]))]
+    if case == "tops_apart":  # one launch, top words in seven of 14 warps
+        return 20480, 896, [_edit_pair(rng, int(rng.integers(2000, 4000)), m)
+                            for m in (1, 100, 2049, 6000, 9000, 20000, 28672)]
+    assert case == "with_n"
+    pairs = [_edit_pair(rng, 3000, 3100) for _ in range(3)]
+    pairs[0][0][[0, 1000, 2999]] = 4
+    pairs[1][1][[5, 2047, 3099]] = 4
+    pairs[2][0][77] = pairs[2][1][77] = 4  # N against N: no match here
+    return 8192, 384, pairs
+
+
+@pytest.mark.parametrize("case", ["m2047", "m2048", "m2049", "m4097",
+                                  "m28672", "n1", "nT2048", "nT8192",
+                                  "nT20480", "B1", "B2", "B3", "tops_apart",
+                                  "with_n"])
+def test_myers_wavefront_kernel_boundaries(dev, case):
+    """csrc/myers.cu where its wavefront hands over: top words 31 / 32
+    (a warp edge), 64 (a third warp) and 447 (all 14 warps), texts of one
+    column and of T columns, launches of 1-3 pairs, top words in
+    different warps of one launch, and N pairs; equal to the plain
+    version (run on the batch's own words: words above a pair's top never
+    reach it) and, without N, to the native Myers."""
+    from vacmap_tpu_torch import native
+    from vacmap_tpu_torch.ops import myers
+
+    T, Wd, pairs = _wavefront_case(case)
+    x = [torch.from_numpy(a).to(dev) for a in myers.pack_jobs(pairs, T, Wd)]
+    before = myers.myers_distances.launches
+    got = myers.myers_distances(*x)
+    torch.cuda.synchronize()
+    assert myers.myers_distances.launches == before + 1
+    got = got.cpu().numpy()
+    words = max((len(q) + 63) // 64 for _, q in pairs)
+    text, peq, n, m = x
+    want = myers.myers_distances_ref(text, peq[:, :, :words].contiguous(),
+                                     n, m).cpu().numpy()
+    assert got.tolist() == want.tolist()
+    clean = [i for i, (t, q) in enumerate(pairs)
+             if not ((t == 4).any() or (q == 4).any())]
+    assert (case == "with_n") == (not clean)
+    assert [int(got[i]) for i in clean] == [
+        native.edit_distance_native(*pairs[i]) for i in clean]
+    if case == "with_n":  # the native Myers matches N to N; one more here
+        nat = native.edit_distance_native(*pairs[2])
+        assert nat <= int(got[2]) <= nat + 1
 
 
 def test_prewarm_entry_on_card(dev, capsys):

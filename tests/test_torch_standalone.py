@@ -13,7 +13,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "vacmap_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "profile_port.py"]
+    REPO / "chip_smoke.py", REPO / "profile_port.py", REPO / "probe_fill.py",
+    REPO / "probe_myers.py"]
 FORBIDDEN = ("vacmap_tpu", "jax", "jaxlib", "examples", "myers_pallas_device")
 
 

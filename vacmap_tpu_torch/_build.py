@@ -51,7 +51,6 @@ _SIGNATURES = {
     "fill_scan_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
     "myers_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "myers_ops_per_word_step": [],
 }
 
 

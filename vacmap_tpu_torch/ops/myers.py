@@ -7,12 +7,14 @@ service's edit job kind to ``TorchMyersAligner``, which answers the exact
 distance of every pair (no band, no cap), so the caller's decision
 ``d > cap`` needs no escalation.
 
-``myers_distances`` launches csrc/myers.cu on CUDA tensors (one warp a
-pair, the pattern's 64-bit words spread over the lanes) and takes
-``myers_distances_ref``, the plain PyTorch version of the same
-recurrence, on CPU tensors.  The pattern is packed on the host into Peq
-bit tables (``pack_peq``): bit j of word w of plane c is set where
-pattern[64 w + j] == c.
+``myers_distances`` launches csrc/myers.cu on CUDA tensors (one thread
+block a pair, one 64-bit pattern word a thread, stepped as a
+word-by-column wavefront) and takes ``myers_distances_ref``, the plain
+PyTorch version of the same recurrence, on CPU tensors.
+``myers_distances_wavefront_ref`` computes it in the kernel's order, for
+the tests.  The pattern is packed on the host into Peq bit tables
+(``pack_peq``): bit j of word w of plane c is set where pattern[64 w + j]
+== c.
 
 Base code 4 (ambiguous, and the planes' padding) matches nothing, not
 even another 4: the TPU kernel's rule.  The host's native Myers counts
@@ -36,12 +38,12 @@ from ..device import (
 # reference's keys: text up to T bases, pattern up to 32 Wd bases, sized
 # for m <= 1.4 T (the divergence filter sends |n - m| <= 0.4 min(n, m))
 DEFAULT_BUCKETS = ((2048, 128), (8192, 384), (20480, 896))
-# cap on the pairs of one launch, per bucket.  A pair is one warp, so a
-# launch wants several warps for each of the card's 132 SMs; the caps
-# bound the launch's padded planes (text T + Peq 16 Wd bytes a pair: 4,
-# 7 and 9 MB at these sizes) rather than any on-chip memory
+# cap on the pairs of one launch, per bucket.  A pair is one thread
+# block; the caps bound the launch's padded planes (text T + Peq 16 Wd
+# bytes a pair: 4, 7 and 9 MB at these sizes) rather than any on-chip
+# memory
 DEFAULT_B = {2048: 1024, 8192: 512, 20480: 256}
-MAX_WORDS = 448  # 64-bit pattern words one warp of csrc/myers.cu holds
+MAX_WORDS = 448  # 64-bit pattern words one block of csrc/myers.cu holds
 
 
 def pack_peq(queries: Sequence[np.ndarray], W: int) -> np.ndarray:
@@ -85,6 +87,13 @@ def _shl1(x: torch.Tensor, fill: int) -> torch.Tensor:
     return (x << 1) | below
 
 
+def _end_bits(m: torch.Tensor, W: int) -> torch.Tensor:
+    """(B, W) int64: bit m - 1 of each pattern, the one the score reads."""
+    own = torch.zeros((m.shape[0], W), dtype=torch.int64, device=m.device)
+    return own.scatter_(1, ((m - 1) >> 6).unsqueeze(1),
+                        (torch.ones_like(m) << ((m - 1) & 63)).unsqueeze(1))
+
+
 def myers_distances_ref(text: torch.Tensor, peq: torch.Tensor,
                         n_len: torch.Tensor, m_len: torch.Tensor
                         ) -> torch.Tensor:
@@ -96,9 +105,7 @@ def myers_distances_ref(text: torch.Tensor, peq: torch.Tensor,
     dev = peq.device
     n_len = n_len.to(torch.int64)
     m = m_len.to(torch.int64).clamp(1, W * 64)
-    own = torch.zeros((B, W), dtype=torch.int64, device=dev)
-    own.scatter_(1, ((m - 1) >> 6).unsqueeze(1),
-                 (torch.ones_like(m) << ((m - 1) & 63)).unsqueeze(1))
+    own = _end_bits(m, W)
     rows = torch.arange(B, device=dev)
     Pv = torch.full((B, W), -1, dtype=torch.int64, device=dev)
     Mv = torch.zeros_like(Pv)
@@ -122,6 +129,63 @@ def myers_distances_ref(text: torch.Tensor, peq: torch.Tensor,
         Mhs = _shl1(Mh, 0)
         Pv = Mhs | ~(Xv | Phs)
         Mv = Phs & Xv
+    return (m + score).to(torch.int32)
+
+
+def myers_distances_wavefront_ref(text: torch.Tensor, peq: torch.Tensor,
+                                  n_len: torch.Tensor, m_len: torch.Tensor
+                                  ) -> torch.Tensor:
+    """The same distances in csrc/myers.cu's order, for the tests: a
+    word-by-column wavefront on (B, W) int64 tensors.  Step s computes,
+    for every word w at once, text column s - w; the carry into word w
+    and the two bits its Ph and Mh shift in are word w - 1's outputs of
+    the step before (that word's same column), not a scan.  A pair uses
+    only its own ceil(m / 64) words, and a word keeps its state outside
+    the pair's columns [0, n).  Word 0 takes carry 0, Ph bit 1, Mh bit
+    0."""
+    B, T = text.shape
+    W = peq.shape[2]
+    dev = peq.device
+    n = n_len.to(torch.int64).clamp(0, T)
+    m = m_len.to(torch.int64).clamp(1, W * 64)
+    own = _end_bits(m, W)
+    word = torch.arange(W, device=dev)
+    used = word < ((m + 63) >> 6).unsqueeze(1)
+    rows = torch.arange(B, device=dev).unsqueeze(1)
+    Pv = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+    Mv = torch.zeros_like(Pv)
+    score = torch.zeros(B, dtype=torch.int64, device=dev)
+    # the bits word w takes from word w - 1 (word 0: carry 0, Ph 1, Mh 0)
+    c_in = torch.zeros_like(Pv)
+    p_in = torch.zeros_like(Pv)
+    p_in[:, 0] = 1
+    m_in = torch.zeros_like(Pv)
+    steps = int((n + ((m + 63) >> 6) - 1).max()) if B else 0
+    for s in range(steps):
+        i = s - word
+        live = (i >= 0) & (i < n.unsqueeze(1)) & used
+        c = text[rows, i.clamp(0, T - 1)].to(torch.int64)
+        Eq = peq[rows, c.clamp(max=3), word] * (c < 4).to(torch.int64)
+        X = Eq & Pv
+        s1 = X + Pv
+        g = (((X & Pv) | ((X | Pv) & ~s1)) >> 63) & 1
+        cout = g | (c_in & (s1 == -1).to(torch.int64))
+        Xh = ((s1 + c_in) ^ Pv) | Eq
+        Ph = Mv | ~(Xh | Pv)
+        Mh = Pv & Xh
+        lv = live.to(torch.int64)
+        score += (lv * ((Ph & own) != 0).to(torch.int64)).sum(1) \
+            - (lv * ((Mh & own) != 0).to(torch.int64)).sum(1)
+        Phs = (Ph << 1) | p_in
+        Mhs = (Mh << 1) | m_in
+        Xv = Eq | Mv
+        Pv = torch.where(live, Mhs | ~(Xv | Phs), Pv)
+        Mv = torch.where(live, Phs & Xv, Mv)
+        # word w's outputs of this column reach word w + 1 next step
+        c_in = _shift_words(cout, 1)
+        p_in = _shift_words((Ph >> 63) & 1, 1)
+        p_in[:, 0] = 1
+        m_in = _shift_words((Mh >> 63) & 1, 1)
     return (m + score).to(torch.int32)
 
 
@@ -159,11 +223,12 @@ def myers_distances(text: torch.Tensor, peq: torch.Tensor,
                           cuda_stream(dev))
     if rc != 0:
         raise DeviceKernelError(f"myers kernel launch failed: cudaError {rc}")
-    count_launch(myers_distances)
+    count_launch(myers_distances, (B, T))
     return dist
 
 
 myers_distances.launches = 0
+myers_distances.shapes = {}  # (B, T) -> launches
 
 
 def pack_jobs(jobs: Sequence[Tuple[np.ndarray, np.ndarray]], T: int, Wd: int):
