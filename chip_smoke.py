@@ -71,6 +71,25 @@ the final line):
      a process of its own.  The SAM records must be equal, every round-1
      block must have been chained by the warm kernel (none declined for
      size or coordinates), and the kernel must have launched.
+  7. multi-process: two CLI processes of the port's executor started
+     together on phase 5's corpus, `--backend jax --device cuda
+     --coordinator 127.0.0.1:<free port> --num-processes 2 --process-id
+     {0,1}` (a gloo group, both on the one card): both exit 0, process 0
+     merges the parts into one SAM with one @HD and one @PG, no part file
+     left, every read in it exactly once and aligned, records equal to the
+     host path's for >= 99% of reads; the pair's wall time (start to the
+     last exit) beside phase 5's one-process executor; launches from each
+     process's chain stats log line and fill service stats line.
+  8. mesh: parallel/mesh.ShardedChainStep over make_mesh() (every visible
+     card) and over [cuda:0, cuda:0] (two parts, each on a stream of its
+     own, on one card) at phase 4's global B = 64, fine B = 16 and refund
+     B = 16 shapes (N = 2048): S and P bit-equal to one unsplit launch,
+     the accepted count equal; entry.dryrun_multichip on every visible
+     card; ShardedMappingStep over [cuda:0, cuda:0] against [cuda:0] with
+     byte-equal outputs; each step's wall time per call (copies, launches,
+     read-back) beside the unsplit call's.
+  9. entry: vacmap_tpu_torch.entry.entry()'s fn(*args) on the card against
+     the plain version on the CPU (S within 1e-3, P agreement >= 0.999).
 Launch counts are set to 0 just before each path and read just after.
 The fill kernels' counts of both deployments come from their service's
 stats line, which counts from the moment the service is ready, so the
@@ -521,6 +540,246 @@ def sam_records(path):
             cols = line.rstrip("\n").split("\t")
             recs.setdefault(cols[0], []).append(tuple(cols[:6]))
     return {k: sorted(v) for k, v in recs.items()}
+
+
+def multi_process_phase(wd, common, env, host_recs, names, one_s, card):
+    """Two CLI processes of the executor, one gloo group on a free port,
+    started together; returns their kernel launches summed."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(wd, "multi_process.sam")
+    err_paths = [os.path.join(wd, f"multi_process_{pid}.log") for pid in (0, 1)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for pid in (0, 1):
+            penv = dict(env, VACMAP_TPU_FILL_STATS=os.path.join(
+                wd, f"multi_process_{pid}_fill_stats.txt"))
+            with open(err_paths[pid], "w") as log_f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "vacmap_tpu_torch.cli", *common,
+                     "--backend", "jax", "--device", "cuda", "-o", out,
+                     "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                     "2", "--process-id", str(pid)],
+                    env=penv, stdout=subprocess.DEVNULL, stderr=log_f))
+        for p in procs:
+            p.wait(timeout=900)
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    errs = [open(path).read() for path in err_paths]
+    for pid, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            fail(f"multi-process: process {pid} exited {p.returncode}: "
+                 f"{err[-3000:]}")
+        if "joined the gloo group" not in err:
+            fail(f"multi-process: process {pid} never joined the group")
+    left = [f for f in os.listdir(wd) if ".part" in f]
+    if left:
+        fail(f"multi-process: part files left after the merge: {left}")
+    tags, primaries = [], {}
+    with open(out) as f:
+        for ln in f:
+            cols = ln.split("\t", 2)
+            if ln.startswith("@"):
+                tags.append(cols[0])
+            elif not int(cols[1]) & 0x900:
+                primaries[cols[0]] = primaries.get(cols[0], 0) + 1
+    recs = sam_records(out)
+    same = sum(recs.get(n) == host_recs.get(n) for n in names)
+    aligned = sum(any(not int(r[1]) & 4 for r in recs.get(n, []))
+                  for n in names)
+    launches = {"chain_dp": 0}
+    for pid, err in enumerate(errs):
+        line = [ln for ln in err.splitlines()
+                if "executor chain device stats:" in ln]
+        if not line:
+            fail(f"multi-process: process {pid} printed no chain stats line")
+        launches["chain_dp"] += int(line[-1].split("chain_launches=")[1]
+                                    .split()[0])
+        try:
+            _, fills = read_stats(os.path.join(
+                wd, f"multi_process_{pid}_fill_stats.txt"))
+        except (OSError, KeyError, ValueError) as err_:
+            fail(f"multi-process: process {pid} wrote no stats line: {err_!r}")
+        for k, v in fills.items():
+            launches[k] = launches.get(k, 0) + v
+    say(f"multi-process (2 executor processes, gloo group, one card): "
+        f"exit 0 both; merged SAM {tags.count('@HD')} @HD, "
+        f"{tags.count('@PG')} @PG, no part left; {len(primaries)}/"
+        f"{len(names)} reads with one primary record each; aligned "
+        f"{aligned}/{len(names)}; records equal to the host path for "
+        f"{same}/{len(names)} ({same / len(names):.4f}); pair {wall:.3f} s "
+        f"start to the last exit, one-process executor {one_s:.3f} s; "
+        f"launches {launches} [{card}]")
+    if tags.count("@HD") != 1 or tags.count("@PG") != 1:
+        fail(f"multi-process: merged header has {tags}")
+    if set(primaries) != set(names) or any(v != 1 for v in primaries.values()):
+        fail("multi-process: not every read once in the merged SAM: "
+             f"{sorted(set(names) - set(primaries))[:10]} missing, "
+             f"{[k for k, v in primaries.items() if v != 1][:10]} repeated")
+    if aligned != len(names):
+        fail(f"multi-process: only {aligned}/{len(names)} reads aligned")
+    if same / len(names) < E2E_AGREE_MIN:
+        fail(f"multi-process: record agreement {same / len(names):.4f} < "
+             f"{E2E_AGREE_MIN}")
+    for k in ("chain_dp", "fill_banded"):
+        if launches.get(k, 0) <= 0:
+            fail(f"multi-process: {k} never launched: {launches}")
+    return launches
+
+
+def per_call_s(torch, fn, reps):
+    """Wall seconds per call of fn() (it synchronizes itself), and fn's
+    last result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps, out
+
+
+def mesh_phase(torch, dev, gcodes, cfg0, card, reset_launches,
+               read_launches):
+    """ShardedChainStep over every visible card and over two streams of
+    cuda:0 against one unsplit launch, the multi-device dry run, and
+    ShardedMappingStep split against unsplit; returns the steps'
+    launches (the unsplit launches they are held to are left out)."""
+    from vacmap_tpu_torch import entry
+    from vacmap_tpu_torch.ops import chain
+    from vacmap_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(SEED + 11)
+    skip_g, maxdiff_g, maxgap_g = cfg0.chain_params_global()
+    skip_l, maxdiff_l, maxgap_l = cfg0.chain_params_local()
+    meshes = {"make_mesh()": mesh.make_mesh(), "[cuda:0, cuda:0]": [dev, dev]}
+    steps_launches = {}
+    inputs = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            if v:
+                steps_launches[k] = steps_launches.get(k, 0) + v
+
+    for variant, B in (("global", 64), ("fine", 16), ("refund", 16)):
+        local = variant == "fine"
+        k, skip, md, mg = ((cfg0.local_kmersize, skip_l, maxdiff_l, maxgap_l)
+                           if local else (15, skip_g, maxdiff_g, maxgap_g))
+        alist = [sv_anchors(rng, int(rng.integers(1025, 2049)), local)
+                 for _ in range(B)]
+        arrays = chain.prepare_batch(alist, variant, skip, md)
+        inputs[variant] = arrays
+        kw = dict(kmersize=k, maxdiff=md, maxgap=mg, skipcost=skip,
+                  variant=variant)
+
+        def unsplit():
+            S, P = chain.chain_scores_batch(*chain.to_device(dev, *arrays),
+                                            **kw)
+            return S.cpu().numpy(), P.cpu().numpy()
+
+        S0, P0 = unsplit()
+        want_acc = int((S0.max(axis=1) > 60.0).sum())
+        one_s, _ = per_call_s(torch, unsplit, 5)
+        times = []
+        for name, devices in meshes.items():
+            step = mesh.ShardedChainStep(devices, **kw)
+            reset_launches()
+            S, P, best, n_acc = step(*arrays)
+            torch.cuda.synchronize()
+            add(read_launches())
+            ok = (np.array_equal(S.view(np.int32), S0.view(np.int32))
+                  and np.array_equal(P, P0) and n_acc == want_acc
+                  and np.array_equal(best, S0.max(axis=1)))
+            if not ok:
+                fail(f"mesh: ShardedChainStep {variant} B={B} over {name} "
+                     f"differs from the unsplit launch")
+            s, _ = per_call_s(torch, lambda: step(*arrays), 5)
+            times.append(f"{name} ({len(devices)} parts) {s * 1e3:.3f} ms")
+        say(f"mesh chain {variant} B={B} N={arrays[0].shape[1]}: S and P "
+            f"bit-equal to one unsplit launch over both device lists, "
+            f"accepted {want_acc}; wall per call (copies, launches, "
+            f"read-back): unsplit {one_s * 1e3:.3f} ms, "
+            + ", ".join(times) + f" [{card}]")
+
+    n_cards = torch.cuda.device_count()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        entry.dryrun_multichip(n_cards)
+        torch.cuda.synchronize()
+    except Exception as err:  # noqa: BLE001
+        fail(f"mesh: dryrun_multichip({n_cards}) raised: {err!r}")
+    add(read_launches())
+    say(f"mesh dryrun_multichip({n_cards}): ok in "
+        f"{time.perf_counter() - t0:.3f} s [{card}]")
+
+    # the mapping step: both chains and the full-width fill, split in two
+    # against one part
+    g, l = inputs["global"], inputs["fine"]
+    B = 16
+    pairs = fill_pairs(rng, gcodes, B, 128, 512, big_indel=0.3,
+                       random_frac=0.05)
+    tT, tQ, lens = padded(pairs, 512)
+    args = (*(a[:B] for a in g), *l, tT, tQ, lens[:, 0].copy(),
+            lens[:, 1].copy())
+    outs, secs = {}, {}
+    for name, devices in (("[cuda:0]", [dev]), ("[cuda:0, cuda:0]", [dev, dev])):
+        step = mesh.ShardedMappingStep(devices)
+        reset_launches()
+        outs[name] = step(*args)
+        torch.cuda.synchronize()
+        add(read_launches())
+        secs[name], _ = per_call_s(torch, lambda: step(*args), 3)
+    a, b = outs.values()
+    same = all(np.array_equal(np.asarray(x).view(np.uint8),
+                              np.asarray(y).view(np.uint8))
+               for x, y in zip(a[:5], b[:5])) and a[5] == b[5]
+    say(f"mesh ShardedMappingStep B={B} (global and fine N=2048, fill "
+        f"N=512): outputs byte-equal split in two and unsplit: {same}; "
+        f"mapped {a[5]}; wall per call "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in secs.items())
+        + f" [{card}]")
+    if not same:
+        fail("mesh: ShardedMappingStep split in two differs from one part")
+    for k in ("chain_dp", "fill_full"):
+        if steps_launches.get(k, 0) <= 0:
+            fail(f"mesh: {k} never launched: {steps_launches}")
+    return steps_launches
+
+
+def entry_phase(torch, reset_launches, read_launches):
+    """entry()'s function on the card against its plain version on the
+    CPU; returns its launches."""
+    from vacmap_tpu_torch import entry
+    from vacmap_tpu_torch.ops import chain
+
+    fn, args = entry.entry()
+    reset_launches()
+    S, P = fn(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    cpu_args = [a.cpu() for a in args]
+    S0, P0 = chain.chain_scores_batch_ref(*cpu_args, **fn.keywords)
+    valid = (np.arange(S.shape[1])[None, :]
+             < cpu_args[1].numpy()[:, None])
+    err = float(np.abs(S.cpu().numpy() - S0.numpy())[valid].max())
+    agree = float((P.cpu().numpy() == P0.numpy())[valid].mean())
+    ok = err <= CHAIN_ATOL and agree >= CHAIN_P_MIN
+    say(f"entry: fn(*args) {tuple(S.shape)} on the card against the plain "
+        f"version on the CPU: max|dS|={err:.3g} P agreement={agree:.6f} "
+        f"launches {launches} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("entry: the card's chain DP disagrees with its plain version")
+    if launches.get("chain_dp", 0) != 1:
+        fail(f"entry: chain_dp launched {launches} times, not once")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1131,6 +1390,11 @@ def main() -> int:
             fail("the asm CLI printed no chain device stats line: "
                  + asm_err["cuda"][-2000:])
 
+        # ---- 7. multi-process: two executor processes, one gloo group
+        path_launches["multi_process"] = multi_process_phase(
+            wd, common, env, recs["host"], [n for n, _ in reads],
+            secs["executor_timed"], card)
+
     names = [n for n, _ in reads]
     host_recs = recs["host"]
     for path in stats:
@@ -1232,6 +1496,11 @@ def main() -> int:
     if astats["warm_launches"] < round1 + 1:
         fail(f"asm: the warm kernel launched {astats['warm_launches']} times for "
              f"{round1} blocks and one contig under 500 kb")
+    # ---- 8. mesh and 9. entry -----------------------------------------
+    path_launches["mesh"] = mesh_phase(torch, dev, gcodes, cfg0, card,
+                                       reset_launches, read_launches)
+    path_launches["entry"] = entry_phase(torch, reset_launches,
+                                         read_launches)
     if "jax" in sys.modules or "vacmap_tpu" in sys.modules:
         fail("jax or the JAX package was imported")
 

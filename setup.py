@@ -16,6 +16,7 @@ setup(
             "vacmap-tpu = vacmap_tpu.cli:main",
             "vacsim-tpu = vacmap_tpu.sim.vacsim:main",
             "vacmap-tpu-torch = vacmap_tpu_torch.cli:main",
+            "vacsim-tpu-torch = vacmap_tpu_torch.sim.vacsim:main",
         ]
     },
 )

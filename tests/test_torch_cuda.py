@@ -723,3 +723,38 @@ def test_prewarm_entry_on_card(dev, capsys):
     out = capsys.readouterr().out
     assert "kernel library" in out and "myers kernel (T=20480" in out
     assert "asm stream chain kernel (N=32768)" in out
+
+
+@pytest.mark.parametrize("variant,B", [("global", 64), ("fine", 16),
+                                       ("refund", 5)])
+def test_split_over_two_streams_of_one_card_is_bit_equal(dev, variant, B):
+    """ShardedChainStep over [cuda:0, cuda:0]: two parts, each copied and
+    launched on a stream of its own, give the unsplit launch's bits; a
+    ragged batch (B = 5) is padded to 6 and cut back."""
+    from vacmap_tpu_torch.ops.chain import (
+        chain_scores_batch, prepare_batch, to_device,
+    )
+    from vacmap_tpu_torch.parallel.mesh import ShardedChainStep
+
+    rng = np.random.default_rng(31 + B)
+    alist = [by_barrier(chainy_anchors(rng, read_len=int(rng.integers(
+        2000, 40_000)), noise=40), variant) for _ in range(B)]
+    arrays = prepare_batch(alist, variant, 40.0, 50)
+    kw = dict(CHAIN_KW, variant=variant)
+    S0, P0 = (t.cpu().numpy() for t in
+              chain_scores_batch(*to_device(dev, *arrays), **kw))
+    step = ShardedChainStep([dev, dev], **kw)
+    before = chain_scores_batch.launches
+    S, P, best, n_acc = step(*arrays)
+    assert chain_scores_batch.launches == before + 2
+    assert S.shape == S0.shape
+    assert np.array_equal(S.view(np.int32), S0.view(np.int32))
+    assert np.array_equal(P, P0)
+    assert np.array_equal(best, S0.max(axis=1))
+    assert n_acc == int((S0.max(axis=1) > 60.0).sum())
+
+
+def test_dryrun_multichip_on_one_card(dev):
+    from vacmap_tpu_torch.entry import dryrun_multichip
+
+    dryrun_multichip(1)

@@ -224,11 +224,15 @@ def test_torch_cli_without_a_card_exits_nonzero(world, tmp_path):
     ["-mode", "L", "--num-processes", "3", "--process-id", "1"],
 ])
 def test_torch_cli_refuses_unported_paths(argv, tmp_path):
+    """Multi-host runs are ported: these flags pass the argument checks
+    (no "not yet ported" refusal) and the run stops at the missing read
+    file, before any process group or output is made."""
     from vacmap_tpu_torch import cli as port_cli
 
-    with pytest.raises(SystemExit, match="not yet ported"):
-        port_cli.main(["-ref", str(tmp_path / "r.fa"), "-read",
-                       str(tmp_path / "q.fa"), "--device", "cpu", *argv])
+    rc = port_cli.main(["-ref", str(tmp_path / "r.fa"), "-read",
+                        str(tmp_path / "q.fa"), "--device", "cpu", *argv])
+    assert rc == 1
+    assert not list(tmp_path.iterdir())
 
 
 def test_torch_cli_prewarm_runs_on_the_cpu_and_needs_a_card_otherwise(capsys):

@@ -18,6 +18,12 @@ Same flags as ``vacmap-tpu`` plus ``--device {cuda,cpu}``, routed by
   anchor block with the carried frontier for the streaming chain of
   larger ones; otherwise the host DP.
 
+``--num-processes N --process-id i``: process i maps every N-th read
+(after de-duplication; whole files when there are at least N of them)
+into ``<out>.part{i}``, and process 0 merges the parts into ``-o`` once
+every part is done.  ``--coordinator host:port`` also joins the
+processes in a gloo process group first (``parallel/mesh.py``).
+
 ``--device-fills off`` keeps every fill on the host (the non-executor
 read paths then use no device); ``auto`` runs the service's start-up
 calibration and stays on host fills when the device cannot beat them;
@@ -47,14 +53,14 @@ from .config import AlignerConfig
 from .device import DeviceKernelError, resolve_device
 from .index.index import ReferenceIndex
 from .io.fastx import fastx_read
+from .io.merge_parts import finish_multihost
 from .io.sam_writer import OutputWriter
 from .ops.chain import chain_scores_batch, chain_scores_batch_warm
+from .parallel.mesh import initialize_distributed, shutdown_distributed
 from .pipeline.extend import HostBatchFillAligner
 from .pipeline.mapper import Mapper, PendingLines
 
 log = logging.getLogger("vacmap_tpu_torch")
-
-NOT_PORTED = "not yet ported to vacmap_tpu_torch (see ROADMAP.md)"
 
 RG_TAGS = ["id", "sm", "lb", "pl", "ds", "dt", "pu", "pi", "pg", "cn", "fo", "ks", "pm", "bc"]
 
@@ -124,8 +130,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "pipelined fill service). auto (default): the "
                          "service's start-up calibration decides; on: "
                          "always; off: host C++ kernels only")
-    mh = p.add_argument_group("Multi-host (not yet ported)")
-    mh.add_argument("--coordinator", help="host:port of process 0")
+    mh = p.add_argument_group("Multi-host")
+    mh.add_argument("--coordinator",
+                    help="host:port of process 0: join a gloo process group "
+                         "before mapping")
     mh.add_argument("--num-processes", type=int)
     mh.add_argument("--process-id", type=int)
     rg = p.add_argument_group("Read-group (RG) metadata")
@@ -374,16 +382,8 @@ def _writer(cooked_q, path, header, n_workers: int):
     writer.close()
 
 
-def _unported(args) -> Optional[str]:
-    if args.num_processes is not None and args.num_processes > 1:
-        return "--num-processes > 1"
-    if args.coordinator:
-        return "--coordinator"
-    return None
-
-
-def _records(read_paths, cfg):
-    for rec in _dedup_records(read_paths, cfg):
+def _records(read_paths, cfg, shard):
+    for rec in _dedup_records(read_paths, cfg, shard=shard):
         yield (rec[0], rec[1], rec[2] if len(rec) > 2 else None,
                rec[3] if len(rec) > 3 else None)
 
@@ -394,7 +394,8 @@ def _service_error(handle) -> None:
         raise DeviceKernelError(f"device fill service: {msg}")
 
 
-def _run_executor(args, cfg, mapper, header, read_paths, device) -> int:
+def _run_executor(args, cfg, mapper, header, read_paths, device,
+                  shard) -> int:
     from .pipeline.executor import TorchBatchExecutor
 
     ex = TorchBatchExecutor(mapper, device,
@@ -403,7 +404,7 @@ def _run_executor(args, cfg, mapper, header, read_paths, device) -> int:
 
     def counted():
         nonlocal count
-        for rec in _dedup_records(read_paths, cfg):
+        for rec in _dedup_records(read_paths, cfg, shard=shard):
             count += 1
             yield rec
 
@@ -416,10 +417,13 @@ def _run_executor(args, cfg, mapper, header, read_paths, device) -> int:
     finally:
         writer.close()
         ex.close()
+    log.info("executor chain device stats: chain_launches=%d",
+             chain_scores_batch.launches)
     return count
 
 
-def _run_single(args, cfg, mapper, header, read_paths, handle) -> int:
+def _run_single(args, cfg, mapper, header, read_paths, handle,
+                shard) -> int:
     """One mapping loop with a deferred window (the reference's -t 1)."""
     if handle is not None:
         mapper.global_aligner = handle.client(0)
@@ -430,7 +434,7 @@ def _run_single(args, cfg, mapper, header, read_paths, handle) -> int:
     writer = OutputWriter(args.o, header)
     count = 0
     try:
-        for name, seq, qual, comment in _records(read_paths, cfg):
+        for name, seq, qual, comment in _records(read_paths, cfg, shard):
             _service_error(handle)
             r = mapper.map_read_deferred(name, seq, qual, comment)
             if isinstance(r, PendingLines):
@@ -448,7 +452,7 @@ def _run_single(args, cfg, mapper, header, read_paths, handle) -> int:
     return count
 
 
-def _run_pool(args, cfg, index, header, read_paths, handle) -> int:
+def _run_pool(args, cfg, index, header, read_paths, handle, shard) -> int:
     """N forked mapping workers sharing one fill service process."""
     n_workers = max(cfg.threads, 1)
     ctx = mp.get_context("fork")
@@ -482,7 +486,7 @@ def _run_pool(args, cfg, index, header, read_paths, handle) -> int:
     st = time.time()
     count = 0
     try:
-        for rec in _records(read_paths, cfg):
+        for rec in _records(read_paths, cfg, shard):
             put(rec)
             count += 1
             check()
@@ -506,13 +510,13 @@ def _run_pool(args, cfg, index, header, read_paths, handle) -> int:
     return count
 
 
-def _run_asm(args, mapper, header, read_paths) -> int:
+def _run_asm(args, mapper, header, read_paths, shard) -> int:
     """-mode asm: one worker, contig by contig, fills on the host."""
     cfg = mapper.config
     writer = OutputWriter(args.o, header)
     count = 0
     try:
-        for name, seq, qual, comment in _records(read_paths, cfg):
+        for name, seq, qual, comment in _records(read_paths, cfg, shard):
             lines = mapper.map_contig(name, seq, qual, comment)
             if lines:
                 writer.write_lines(lines)
@@ -548,9 +552,25 @@ def main(argv: Optional[List[str]] = None) -> int:
         dev = raw[raw.index("--device") + 1] if "--device" in raw[:-1] else "cuda"
         return prewarm.main(["--all", "--device", dev])
     args = build_parser().parse_args(raw)
-    what = _unported(args)
-    if what is not None:
-        raise SystemExit(f"ERROR: {what} is {NOT_PORTED}")
+    # multi-host read sharding works with or without a process group
+    n_proc = args.num_processes or 1
+    proc_id = args.process_id or 0
+    if not 0 <= proc_id < n_proc:
+        raise SystemExit(f"ERROR: --process-id {proc_id} is not in "
+                         f"[0, --num-processes {n_proc})")
+    shard = (proc_id, n_proc)
+    final_out = args.o
+    if n_proc > 1 and args.o != "-":
+        # per-process parts on the shared output directory; process 0
+        # merges them into the single file once every part's .done
+        # sentinel appears (io/merge_parts.py)
+        base, ext = args.o, ""
+        for suffix in (".sorted.bam", ".sam", ".bam"):
+            if args.o.endswith(suffix):
+                base, ext = args.o[: -len(suffix)], suffix
+                break
+        args.o = f"{base}.part{proc_id}{ext}"
+        log.info("process %d/%d writes %s", proc_id, n_proc, args.o)
     asm = args.mode == "asm"
     executor = args.backend == "jax" and not asm
     want_fills = args.device_fills != "off" and not asm
@@ -603,6 +623,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         log.info("device fill service starting on %s (%d clients)", device,
                  n_clients)
     try:
+        # the process group (if any) before the index load, as the
+        # reference boots jax.distributed
+        if initialize_distributed(args.coordinator, n_proc, proc_id):
+            log.info("process %d/%d joined the gloo group at %s", proc_id,
+                     n_proc, args.coordinator)
         index = load_or_build_index(args.ref, args.k, args.w,
                                     not args.nowriteindex, lowmem=args.lowmem)
         mapper = Mapper(index, cfg, device=device)
@@ -615,24 +640,32 @@ def main(argv: Optional[List[str]] = None) -> int:
         if asm:
             how = "one asm worker" + (
                 f", chain DPs on {device}" if cfg.backend == "jax" else "")
-            count = _run_asm(args, mapper, header, read_paths)
+            count = _run_asm(args, mapper, header, read_paths, shard)
         elif executor:
             how = f"the batched executor on {device}"
-            count = _run_executor(args, cfg, mapper, header, read_paths, device)
+            count = _run_executor(args, cfg, mapper, header, read_paths,
+                                  device, shard)
         elif cfg.threads <= 1:
             how = "one worker"
-            count = _run_single(args, cfg, mapper, header, read_paths, handle)
+            count = _run_single(args, cfg, mapper, header, read_paths,
+                                handle, shard)
         else:
             how = f"{cfg.threads} fork workers"
-            count = _run_pool(args, cfg, index, header, read_paths, handle)
+            count = _run_pool(args, cfg, index, header, read_paths, handle,
+                              shard)
     finally:
         msg = handle.stop() if handle is not None else None
+        shutdown_distributed()
         if created_workdir is not None:
             shutil.rmtree(created_workdir, ignore_errors=True)
     if msg is not None:
         raise DeviceKernelError(f"device fill service: {msg}")
     if handle is not None:
         how += f", fills served on {device}"
+    if n_proc > 1 and final_out != "-":
+        finish_multihost(final_out, args.o, proc_id, n_proc)
+        if proc_id == 0:
+            log.info("merged %d parts into %s", n_proc, final_out)
     dt = max(time.time() - st, 1e-3)
     log.info("Done: %d sequences with %s in %.1fs (%.1f/s)", count, how, dt,
              count / dt)

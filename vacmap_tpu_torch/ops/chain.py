@@ -771,12 +771,14 @@ def device_chainable(A: np.ndarray) -> bool:
 def chain_results(device, anchor_list, variant: str, kmersize: int,
                   skipcost: float, maxdiff: int, maxgap: int,
                   pad_N: Optional[int] = None,
-                  pad_B: Optional[int] = None) -> List[ChainResult]:
+                  pad_B: Optional[int] = None, step=None) -> List[ChainResult]:
     """Chain DP of many reads as one launch on ``device``: pad them into
     one batch (at least pad_B rows of pad_N anchors; padded rows and
     columns lie past n_valid and change nothing), run
     chain_scores_batch, and cut the result back into one ChainResult per
-    read.  Any failure of the device call raises DeviceKernelError."""
+    read.  Given ``step`` (a ``parallel.mesh.ShardedChainStep`` of these
+    parameters), the batch runs split over the step's devices instead.
+    Any failure of the device call raises DeviceKernelError."""
     anchors, n_valid, skip_i, maxdiff_i = prepare_batch(
         anchor_list, variant, skipcost, maxdiff)
     B, N = anchors.shape[:2]
@@ -787,13 +789,17 @@ def chain_results(device, anchor_list, variant: str, kmersize: int,
         skip_i = np.pad(skip_i, ((0, pb), (0, pn)))
         maxdiff_i = np.pad(maxdiff_i, ((0, pb), (0, pn)))
     with device_call(f"{variant} chain device call"):
-        S, P = chain_scores_batch(
-            *to_device(device, anchors, n_valid, skip_i, maxdiff_i),
-            kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
-            skipcost=skipcost, variant=variant,
-        )
-        S = S.cpu().numpy().astype(np.float64)
-        P = P.cpu().numpy().astype(np.int64)
+        if step is not None:
+            S, P, _, _ = step(anchors, n_valid, skip_i, maxdiff_i)
+        else:
+            S, P = chain_scores_batch(
+                *to_device(device, anchors, n_valid, skip_i, maxdiff_i),
+                kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
+                skipcost=skipcost, variant=variant,
+            )
+            S, P = S.cpu().numpy(), P.cpu().numpy()
+        S = S.astype(np.float64)
+        P = P.astype(np.int64)
     out = []
     for b, A in enumerate(anchor_list):
         n = len(A)

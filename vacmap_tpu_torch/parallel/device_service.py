@@ -5,8 +5,9 @@ The finishing threads of the batched executor each ask for a few local
 chain DPs per read.  ``TorchAggregatingChainBackend`` merges the chain
 jobs of concurrently finishing reads into one kernel launch per
 parameter group (the fills go through the fill service,
-``parallel/fill_service.py``).  A device error is raised to every
-waiting caller; nothing falls back to the host.
+``parallel/fill_service.py``); given a device list, each launch runs
+split over it (``parallel/mesh.ShardedChainStep``).  A device error is
+raised to every waiting caller; nothing falls back to the host.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ..device import DeviceKernelError
 from ..ops.chain import chain_results, device_chainable
+from .mesh import cached_chain_step
 
 # a dispatcher stops waiting for peers once this many jobs queue up
 MAX_JOBS = 512
@@ -33,10 +35,14 @@ class TorchAggregatingChainBackend:
     -> ChainResult | None (None = the caller takes the host DP:
     host-only variant, >2^31 coordinates or oversized job).  Jobs group
     by the full parameter tuple.  A failed device call raises
-    DeviceKernelError in every waiting caller."""
+    DeviceKernelError in every waiting caller.  ``devices``: a device
+    list; each group's launch then runs split over it, one cached step a
+    parameter set."""
 
-    def __init__(self, device, max_wait_ms: float = 4.0):
+    def __init__(self, device, max_wait_ms: float = 4.0, devices=None):
         self.device = torch.device(device)
+        self.devices = None if devices is None else list(devices)
+        self._steps = {}
         self._max_wait = max_wait_ms / 1e3
         self._lock = threading.Lock()
         self._queue: List[dict] = []
@@ -88,7 +94,10 @@ class TorchAggregatingChainBackend:
                     B2 *= 2
                 res = chain_results(
                     self.device, [r["A"] for r in reqs], variant, kmersize,
-                    skipcost, maxdiff, maxgap, pad_B=B2)
+                    skipcost, maxdiff, maxgap, pad_B=B2,
+                    step=cached_chain_step(self._steps, self.devices, variant,
+                                           kmersize, skipcost, maxdiff,
+                                           maxgap))
                 for r, cr in zip(reqs, res):
                     r["result"] = cr
         except Exception as err:

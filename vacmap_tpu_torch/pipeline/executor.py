@@ -8,6 +8,11 @@ threads.  The finishing reads' local fine/mismatch DPs merge into device
 chain launches, and their base-level fills go to the in-process fill
 service (``AsyncFillAligner``: dispatch N+1 overlaps download N).
 
+Given a device list (``devices``, or every visible card when more than
+one is visible and ``device`` is a card), both chain DPs run split over
+it (``parallel/mesh.ShardedChainStep``, one step a parameter set); the
+fill service stays on ``device``.
+
 Identical results to ``Mapper.map_read``.  Repeat-dense reads (anchors/bp
 > 5), reads over the largest bucket and reads whose anchors reach 2^31
 take the host DP.  Host errors drop the read, as in the reference; a
@@ -28,6 +33,7 @@ from ..ops.chain import TorchChainBackend, chain_results, device_chainable
 from ..ops.chain_ref import ChainResult
 from ..parallel.device_service import TorchAggregatingChainBackend
 from ..parallel.fill_service import async_fill_aligner
+from ..parallel.mesh import cached_chain_step, make_mesh
 from .chaining import prepare_read_anchors
 from .mapper import Mapper
 from .sam import records_to_sam
@@ -39,16 +45,24 @@ N_BUCKETS = (512, 2048, 8192)
 class TorchBatchExecutor:
     def __init__(self, mapper: Mapper, device,
                  max_device_batch: int = 128, device_fills: bool = True,
-                 device_local_dp: bool = True):
+                 device_local_dp: bool = True, devices=None):
         self.mapper = mapper
         self.device = torch.device(device)
         self.max_device_batch = max_device_batch
+        # multi-card hosts: the chain DPs split their batch over every
+        # visible card; one card keeps the unsplit launch
+        if (devices is None and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            devices = make_mesh()
+        self.devices = None if devices is None else list(devices)
+        self._sharded_steps = {}
         # the finish threads' local DPs merge into shared launches: the
         # aggregating backend takes the place of the Mapper's per-call one
         if device_local_dp and (
                 mapper.chain_backend is None
                 or isinstance(mapper.chain_backend, TorchChainBackend)):
-            mapper.chain_backend = TorchAggregatingChainBackend(self.device)
+            mapper.chain_backend = TorchAggregatingChainBackend(
+                self.device, devices=self.devices)
         self._owned_fill_aligner = None
         if device_fills and mapper.global_aligner is None:
             mapper.global_aligner = async_fill_aligner(self.device)
@@ -86,7 +100,10 @@ class TorchBatchExecutor:
                 # N padded to the bucket so shapes stay canonical
                 res = chain_results(
                     self.device, [arrays[i] for i in chunk], variant,
-                    kmersize, skipcost, maxdiff, maxgap, pad_N=bucket)
+                    kmersize, skipcost, maxdiff, maxgap, pad_N=bucket,
+                    step=cached_chain_step(
+                        self._sharded_steps, self.devices, variant, kmersize,
+                        skipcost, maxdiff, maxgap))
                 for i, r in zip(chunk, res):
                     out[i] = r
         return out
