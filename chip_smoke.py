@@ -80,7 +80,14 @@ the final line):
      host path's for >= 99% of reads; the pair's wall time (start to the
      last exit) beside phase 5's one-process executor; launches from each
      process's chain stats log line and fill service stats line.
-  8. mesh: parallel/mesh.ShardedChainStep over make_mesh() (every visible
+  8. start-up: four processes of their own, each timed from its start to
+     its exit with a recorder of torch imports in it (TORCH_RECORDER):
+     `import torch` alone, the port's host path, its asm host path (`-mode
+     asm` on phase 6's contigs, the default --backend) and the fork pool
+     with --device-fills on.  The host path and the asm host path must
+     import torch in no process, the fork pool only in its fill service's
+     process (not in the parent or its workers);
+  9. mesh: parallel/mesh.ShardedChainStep over make_mesh() (every visible
      card) and over [cuda:0, cuda:0] (two parts, each on a stream of its
      own, on one card) at phase 4's global B = 64, fine B = 16 and refund
      B = 16 shapes (N = 2048): S and P bit-equal to one unsplit launch,
@@ -88,7 +95,7 @@ the final line):
      card; ShardedMappingStep over [cuda:0, cuda:0] against [cuda:0] with
      byte-equal outputs; each step's wall time per call (copies, launches,
      read-back) beside the unsplit call's.
-  9. entry: vacmap_tpu_torch.entry.entry()'s fn(*args) on the card against
+  10. entry: vacmap_tpu_torch.entry.entry()'s fn(*args) on the card against
      the plain version on the CPU (S within 1e-3, P agreement >= 0.999).
 Launch counts are set to 0 just before each path and read just after.
 The fill kernels' counts of both deployments come from their service's
@@ -151,6 +158,26 @@ EXEC_FULL_B = 4       # the executor's full-width launches (profile_port.py)
 EDIT_CHILD = "--edit-transport-child"  # this script's own child mode
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit",
               "--format=csv,noheader"]
+# a preamble for ``python -c``: every process of the run (forked children
+# inherit the finder) that imports torch appends "<pid> <process name>"
+# to $VACMAP_TORCH_LOG when the import starts (tests/test_torch_startup.py
+# uses it too)
+TORCH_RECORDER = """\
+import os as _os, sys as _sys
+
+
+class _TorchImports:
+    def find_spec(self, name, path=None, target=None):
+        if name == "torch":
+            import multiprocessing as _mp
+
+            with open(_os.environ["VACMAP_TORCH_LOG"], "a") as _f:
+                _f.write(f"{_os.getpid()} {_mp.current_process().name}\\n")
+        return None
+
+
+_sys.meta_path.insert(0, _TorchImports())
+"""
 
 
 def fail(msg: str) -> None:
@@ -511,13 +538,13 @@ def device_ms(torch, fn, reps):
     return s.elapsed_time(e) / reps
 
 
-def cli_process(args, env):
+def cli_process(args, env, cwd=None):
     """Run ``python <args>`` as a process of its own; returns (wall s,
     result).  The window is the process's whole life: interpreter start,
     imports, device set-up, index load, mapping, SAM closed."""
     t0 = time.perf_counter()
     p = subprocess.run([sys.executable, *args], capture_output=True,
-                       text=True, timeout=900, env=env)
+                       text=True, timeout=900, env=env, cwd=cwd)
     return time.perf_counter() - t0, p
 
 
@@ -540,6 +567,81 @@ def sam_records(path):
             cols = line.rstrip("\n").split("\t")
             recs.setdefault(cols[0], []).append(tuple(cols[:6]))
     return {k: sorted(v) for k, v in recs.items()}
+
+
+# the start-up phase's processes: (name, CLI argv or None for a bare
+# ``import torch``, the process names that must import torch, in this tree)
+STARTUP = (
+    ("import torch", None, ["MainProcess"]),
+    ("host path", ["-mode", "H", "--backend", "numpy", "--device-fills",
+                   "off"], []),
+    ("asm host path", ["-mode", "asm"], []),
+    ("fork pool", ["-mode", "H", "-t", "4", "--device", "cuda",
+                   "--device-fills", "on"], ["fill-service"]),
+)
+
+
+def startup_sam(wd, label, name):
+    return os.path.join(wd, f"startup {label} {name}.sam".replace(" ", "_"))
+
+
+def startup_windows(wd, ref, reads_fa, contigs_fa, env, card, trees,
+                    runs=1, procs=STARTUP):
+    """Start each process of ``procs`` (STARTUP's form) of each tree
+    (label, checkout root) as a process of its own, from the tree's root
+    (``python -c`` puts the working directory first on the path), in
+    turns (the trees' order reversed every other round), with
+    TORCH_RECORDER in it; time it from start to exit (cli_process).  The
+    read modes map ``reads_fa``, the asm host path ``contigs_fa``, each
+    into ``startup_sam(wd, label, name)``.  Each run's line also gives
+    its kernel launches: the chain kernel's from the executor's log line,
+    the fill kernels' from a fill service's stats line.  Returns
+    {(label, name): [(seconds, [names of the processes that imported
+    torch])]}."""
+    log = os.path.join(wd, "torch_imports.log")
+    stats = os.path.join(wd, "startup_fill_stats.txt")
+    out = {}
+    for r in range(runs):
+        for label, root in (trees if r % 2 == 0 else trees[::-1]):
+            tenv = dict(env, VACMAP_TORCH_LOG=log, VACMAP_TPU_FILL_STATS=stats,
+                        PYTHONPATH=os.pathsep.join(
+                            [root] + ([os.environ["PYTHONPATH"]]
+                                      if os.environ.get("PYTHONPATH") else [])))
+            for name, argv, _ in procs:
+                code = "import torch\n"
+                if argv is not None:
+                    rd = contigs_fa if "asm" in argv else reads_fa
+                    argv = ["-ref", ref, "-read", rd, *argv, "--force", "-o",
+                            startup_sam(wd, label, name)]
+                    code = ("import runpy, sys\n"
+                            f"sys.argv = ['vacmap-tpu-torch', *{argv!r}]\n"
+                            "runpy.run_module('vacmap_tpu_torch.cli', "
+                            "run_name='__main__')\n")
+                for f in (log, stats):
+                    if os.path.exists(f):
+                        os.remove(f)
+                dt, p = cli_process(["-c", TORCH_RECORDER + code], tenv,
+                                    cwd=root)
+                if p.returncode != 0:
+                    fail(f"start-up {label} {name} exited {p.returncode}: "
+                         f"{p.stderr[-3000:]}")
+                loaded = []
+                if os.path.exists(log):
+                    with open(log) as f:
+                        loaded = [ln.split(" ", 1)[1].strip() for ln in f]
+                launches = {"chain_dp": int(w.split("=")[1])
+                            for ln in p.stderr.splitlines()
+                            if "executor chain device stats" in ln
+                            for w in ln.split()
+                            if w.startswith("chain_launches=")}
+                if os.path.exists(stats):
+                    launches.update(read_stats(stats)[1])
+                out.setdefault((label, name), []).append((dt, loaded))
+                say(f"start-up {label}: {name} {dt:.3f} s, torch imported by "
+                    f"{loaded or 'no process'}"
+                    + (f", launches {launches}" if launches else "")
+                    + f" [{card}]")
+    return out
 
 
 def multi_process_phase(wd, common, env, host_recs, names, one_s, card):
@@ -1395,6 +1497,16 @@ def main() -> int:
             wd, common, env, recs["host"], [n for n, _ in reads],
             secs["executor_timed"], card)
 
+        # ---- 8. start-up: which processes import torch, and their windows
+        here = os.path.dirname(os.path.abspath(__file__))
+        windows = startup_windows(wd, ref, rds, ctg, env, card,
+                                  [("this tree", here)])
+        for name, _, want in STARTUP:
+            (dt, loaded), = windows[("this tree", name)]
+            if loaded != want:
+                fail(f"start-up: {name} imported torch in {loaded}, "
+                     f"expected {want or 'no process'}")
+
     names = [n for n, _ in reads]
     host_recs = recs["host"]
     for path in stats:
@@ -1496,7 +1608,7 @@ def main() -> int:
     if astats["warm_launches"] < round1 + 1:
         fail(f"asm: the warm kernel launched {astats['warm_launches']} times for "
              f"{round1} blocks and one contig under 500 kb")
-    # ---- 8. mesh and 9. entry -----------------------------------------
+    # ---- 9. mesh and 10. entry ----------------------------------------
     path_launches["mesh"] = mesh_phase(torch, dev, gcodes, cfg0, card,
                                        reset_launches, read_launches)
     path_launches["entry"] = entry_phase(torch, reset_launches,

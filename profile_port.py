@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the vacmap_tpu_torch paths (mode H and asm), on one CUDA card.
 
-    python3 profile_port.py [--runs 3]
+    python3 profile_port.py [--runs 3] [--other DIR] [--startup-only]
 
 On chip_smoke.py's corpus (the 100 Mb benchmark genome and its 272 reads
 of 20 kb), after building the index once:
@@ -15,7 +15,15 @@ of 20 kb), after building the index once:
      filter's spans through the service's edit kind to the Myers kernel);
      and the start-up part of that window: processes that only import torch,
      only set the port up (torch import, CUDA context, kernel library),
-     or only import the host path;
+     or only import the host path (which imports no torch); then
+     chip_smoke.py's start-up processes (`import torch` alone, the host
+     path, the asm host path and the fork pool with --device-fills on,
+     each timed from start to exit with its torch imports recorded) and
+     the executor (--backend jax) for --runs rounds, and with --other
+     DIR the same processes of the checkout under DIR (e.g. the parent
+     commit unpacked with `git archive` under build/) in turns with this
+     one's: DIR, this, this, DIR for two rounds.  --startup-only stops
+     there;
   2. breakdown: one more executor run in this process under
      torch.profiler with the stage trace on (--debug): device time by
      kernel and copy (in all and per launch), the device's busy share
@@ -67,6 +75,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=3,
                     help="port/host pairs of timed CLI processes")
+    ap.add_argument("--other", help="a checkout whose start-up processes "
+                    "are timed in turns with this one's")
+    ap.add_argument("--startup-only", action="store_true",
+                    help="stop after the start-up processes")
     args = ap.parse_args()
 
     import torch
@@ -107,13 +119,56 @@ def main() -> int:
             "torch import": "import torch",
             "port": "import torch; torch.zeros(1, device='cuda'); "
                     "from vacmap_tpu_torch import _build, cli; _build.library()",
-            "host": "import vacmap_tpu_torch.cli",
+            "host": "import vacmap_tpu_torch.cli\n"
+                    "assert 'torch' not in sys.modules",
         }
         for side, code in startup.items():
-            dt, p = cs.cli_process(["-c", code], env)
+            dt, p = cs.cli_process(["-c", "import sys\n" + code], env)
             if p.returncode != 0:
                 cs.fail(f"{side} start-up exited {p.returncode}: {p.stderr[-2000:]}")
             cs.say(f"start-up {side}: {dt:.3f} s [{card}]")
+        contigs = cs.asm_contigs(np.random.default_rng(cs.SEED + 2), gcodes)
+        ctg = os.path.join(wd, "contigs.fa")
+        cs.write_fasta(ctg, contigs)
+        trees = [("this tree", here)]
+        if args.other:
+            other = os.path.abspath(args.other)
+            # its own libraries, built before anything is timed
+            p = subprocess.run(
+                [sys.executable, "-c", "from vacmap_tpu_torch import _build, "
+                 "native; _build.library(); assert native.available()"],
+                cwd=other, env=dict(env, PYTHONPATH=other), capture_output=True,
+                text=True, timeout=900)
+            if p.returncode != 0:
+                cs.fail(f"{other}: libraries did not build: {p.stderr[-2000:]}")
+            trees.insert(0, ("other tree", other))
+        # the executor too: its path changed only where the kernels launch
+        procs = cs.STARTUP + (("executor", ["-mode", "H", "--backend", "jax",
+                                            "--device", "cuda"],
+                               ["MainProcess"]),)
+        windows = cs.startup_windows(wd, ref, rds, ctg, env, card, trees,
+                                     runs=args.runs, procs=procs)
+        for name, argv, want in procs:
+            for label, _ in trees:
+                got = windows[(label, name)]
+                cs.say(f"start-up windows, {label}, {name}: "
+                       + " / ".join(f"{dt:.3f}" for dt, _ in got) + " s; torch "
+                       f"imported by {got[0][1] or 'no process'} [{card}]")
+            if any(loaded != want for _, loaded in windows[("this tree", name)]):
+                cs.fail(f"start-up: {name} imported torch in "
+                        f"{windows[('this tree', name)]}, expected "
+                        f"{want or 'no process'}")
+            if len(trees) > 1 and argv is not None:
+                # the records, sorted (the fork pool writes them as its
+                # workers finish); the header's @PG names the -o path
+                recs = [sorted(ln for ln in open(cs.startup_sam(wd, lb, name))
+                               if not ln.startswith("@")) for lb, _ in trees]
+                cs.say(f"start-up {name}: {len(recs[-1])} records, equal in "
+                       f"both trees: {recs[0] == recs[-1]}")
+                if recs[0] != recs[-1]:
+                    cs.fail(f"start-up {name}: the trees' records differ")
+        if args.startup_only:
+            return 0
         for side in ("executor", "fork_pool"):
             sides[f"{side}_edit"] = sides[side]
         order = [s for r in range(args.runs)
@@ -181,9 +236,6 @@ def main() -> int:
         if rc != 0:
             cs.fail(f"profiled port run with the edit route exited {rc}")
 
-        contigs = cs.asm_contigs(np.random.default_rng(cs.SEED + 2), gcodes)
-        ctg = os.path.join(wd, "contigs.fa")
-        cs.write_fasta(ctg, contigs)
         cbases = sum(len(c) for _, c in contigs)
         asm = ["-ref", ref, "-read", ctg, "-mode", "asm", "--force"]
         asm_sides = {"asm host": ["--backend", "numpy"],

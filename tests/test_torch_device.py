@@ -80,6 +80,23 @@ def test_resolve_device():
         resolve_device("meta")
 
 
+def test_resolve_device_checks_the_card_index(monkeypatch):
+    """``cuda:N`` names one of the visible cards or raises; ``cuda`` needs
+    one card at least."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert resolve_device("cuda") == torch.device("cuda")
+    assert resolve_device("cuda:1") == torch.device("cuda:1")
+    with pytest.raises(DeviceKernelError, match="sees 2 CUDA cards"):
+        resolve_device("cuda:2")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(DeviceKernelError, match="sees 1 CUDA card"):
+        resolve_device("cuda:1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for name in ("cuda", "cuda:0"):
+        with pytest.raises(DeviceKernelError, match="no CUDA card"):
+            resolve_device(name)
+
+
 def test_resolve_cuda_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

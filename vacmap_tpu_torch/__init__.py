@@ -9,8 +9,21 @@ index, io, the native C++ library, seeding, backtrack, harvest,
 refinement, SAM) under the reference's file names, and imports neither
 ``vacmap_tpu`` nor ``jax``.  ``vacmap_tpu`` stays the reference that the
 tests hold it against.
+
+Importing the package, or any of its host modules, does not import
+torch: only the processes that launch a kernel load it, as the
+reference's load jax.  ``resolve_device`` (from ``device.py``, which
+imports torch) is resolved at first use.
 """
 
-from .device import DeviceKernelError, resolve_device
+from .errors import DeviceKernelError
 
 __all__ = ["DeviceKernelError", "resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

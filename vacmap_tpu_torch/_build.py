@@ -19,7 +19,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-from .device import DeviceKernelError
+from .errors import DeviceKernelError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vacmap_tpu_torch"

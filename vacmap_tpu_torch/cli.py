@@ -30,6 +30,13 @@ calibration and stays on host fills when the device cannot beat them;
 ``on`` forces the service.  A device error ends the run with a non-zero
 exit.  The index format is the reference's, so one ``.vmi`` serves both
 packages.
+
+As the reference's CLI imports only host modules at its top, this one
+loads torch only in the processes that launch a kernel: the executor,
+asm with ``--backend jax``, and the fill service's own process.  The
+host path, the asm host path and the fork pool's parent and workers
+never import it; ``--coordinator`` does (the gloo group is
+``torch.distributed``).
 """
 
 from __future__ import annotations
@@ -50,13 +57,11 @@ from typing import List, Optional
 
 from . import trace
 from .config import AlignerConfig
-from .device import DeviceKernelError, resolve_device
+from .errors import DeviceKernelError
 from .index.index import ReferenceIndex
 from .io.fastx import fastx_read
 from .io.merge_parts import finish_multihost
 from .io.sam_writer import OutputWriter
-from .ops.chain import chain_scores_batch, chain_scores_batch_warm
-from .parallel.mesh import initialize_distributed, shutdown_distributed
 from .pipeline.extend import HostBatchFillAligner
 from .pipeline.mapper import Mapper, PendingLines
 
@@ -396,6 +401,7 @@ def _service_error(handle) -> None:
 
 def _run_executor(args, cfg, mapper, header, read_paths, device,
                   shard) -> int:
+    from .ops.chain import chain_scores_batch
     from .pipeline.executor import TorchBatchExecutor
 
     ex = TorchBatchExecutor(mapper, device,
@@ -525,6 +531,8 @@ def _run_asm(args, mapper, header, read_paths, shard) -> int:
         writer.close()
     be = mapper.stream_backend
     if be is not None:
+        from .ops.chain import chain_scores_batch, chain_scores_batch_warm
+
         log.info(
             "asm chain device stats: stream_calls=%d stream_engaged=%d "
             "stream_rows=%d stream_max_rows=%d "
@@ -574,12 +582,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     asm = args.mode == "asm"
     executor = args.backend == "jax" and not asm
     want_fills = args.device_fills != "off" and not asm
-    # the executor and the asm chain backends run their kernels here; the
-    # other paths use the device only in the fill service's process
-    # (resolve_device does not set CUDA up, so the service can still do
-    # so after the fork)
-    device = None
-    if args.backend == "jax" or want_fills:
+    # the executor and the asm chain backends run their kernels here, and
+    # resolve the device in this process; the other paths use the device
+    # only in the fill service's process, which resolves it itself (a
+    # missing card fails the service, and with it the run)
+    device = args.device
+    if args.backend == "jax":
+        from .device import resolve_device
+
         device = resolve_device(args.device)
     if args.debug:
         trace.enable()
@@ -625,7 +635,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         # the process group (if any) before the index load, as the
         # reference boots jax.distributed
-        if initialize_distributed(args.coordinator, n_proc, proc_id):
+        if args.coordinator:
+            from .parallel.mesh import initialize_distributed
+
+            initialize_distributed(args.coordinator, n_proc, proc_id)
             log.info("process %d/%d joined the gloo group at %s", proc_id,
                      n_proc, args.coordinator)
         index = load_or_build_index(args.ref, args.k, args.w,
@@ -655,7 +668,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                               shard)
     finally:
         msg = handle.stop() if handle is not None else None
-        shutdown_distributed()
+        if args.coordinator:
+            from .parallel.mesh import shutdown_distributed
+
+            shutdown_distributed()
         if created_workdir is not None:
             shutil.rmtree(created_workdir, ignore_errors=True)
     if msg is not None:

@@ -1,4 +1,5 @@
-"""Device selection and the error every kernel wrapper raises."""
+"""Device selection and the kernel wrappers' helpers.  The error they
+raise is ``errors.DeviceKernelError``, re-exported here."""
 
 from __future__ import annotations
 
@@ -7,25 +8,26 @@ from contextlib import contextmanager
 
 import torch
 
-
-class DeviceKernelError(RuntimeError):
-    """A kernel of this package failed to build, to launch or to run, or a
-    device call around it failed.  Never caught by the mapping pipeline:
-    a device fault stops the run instead of degrading to the host path."""
+from .errors import DeviceKernelError
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
     """``"cuda"`` (or ``"cuda:N"``) or ``"cpu"`` -> torch.device.  Raises
-    when CUDA is asked for and no card is visible.
+    when CUDA is asked for and no card is visible, or card N is not.
 
     Safe before a fork: ``torch.cuda.device_count()`` asks NVML first and
     then does not set CUDA up in this process, so a forked child (the
     fill service) can still do so."""
     dev = torch.device(name)
     if dev.type == "cuda":
-        if torch.cuda.device_count() < 1:
+        n = torch.cuda.device_count()
+        if n < 1:
             raise DeviceKernelError(
                 f"device {name!r} requested but torch sees no CUDA card")
+        if dev.index is not None and dev.index >= n:
+            raise DeviceKernelError(
+                f"device {name!r} requested but torch sees {n} CUDA "
+                f"card{'s' if n > 1 else ''}")
         return dev
     if dev.type == "cpu":
         return dev
@@ -73,6 +75,11 @@ def device_call(what: str):
         raise DeviceKernelError(f"{what} failed: {err}") from err
 
 
-def cuda_stream(device: torch.device) -> int:
-    """Raw handle of torch's current stream on ``device`` (for ctypes)."""
-    return torch.cuda.current_stream(device).cuda_stream
+@contextmanager
+def launch_stream(device: torch.device):
+    """Make ``device`` the current CUDA device for the block and yield the
+    raw handle of torch's current stream on it, for a ctypes launch: the
+    kernels launch into the current device's context, and their host
+    code reads it (``cudaFuncSetAttribute``, ``cudaGetDevice``)."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream

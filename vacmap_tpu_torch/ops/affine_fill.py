@@ -39,7 +39,7 @@ import torch
 from .. import native
 from .._build import library
 from ..device import (
-    DeviceKernelError, check_tensor, count_launch, cuda_stream, device_call,
+    DeviceKernelError, check_tensor, count_launch, device_call, launch_stream,
 )
 from .affine_ref import AlignResult, align2p
 
@@ -657,16 +657,18 @@ def fill_rowruns(tT: torch.Tensor, tQ: torch.Tensor, lens: torch.Tensor, *,
     # chunk the batch so one launch's scratch stays under 1 GiB
     chunk = max(1, BITS_BYTES_PER_LAUNCH // (N * N))
     bits = torch.empty((min(B, chunk), N, N), dtype=torch.uint8, device=dev)
-    stream = cuda_stream(dev)
-    for c0 in range(0, B, chunk):
-        c1 = min(B, c0 + chunk)
-        rc = lib.fill_full_launch(
-            tT[c0:c1].data_ptr(), tQ[c0:c1].data_ptr(), lens[c0:c1].data_ptr(),
-            bits.data_ptr(), planes[c0:c1].data_ptr(), c1 - c0, N,
-            match, mismatch, o1, e1, o2, e2, stream)
-        if rc != 0:
-            raise DeviceKernelError(f"fill_full kernel launch failed: cudaError {rc}")
-        count_launch(fill_rowruns, (c1 - c0, N))
+    with launch_stream(dev) as stream:
+        for c0 in range(0, B, chunk):
+            c1 = min(B, c0 + chunk)
+            rc = lib.fill_full_launch(
+                tT[c0:c1].data_ptr(), tQ[c0:c1].data_ptr(),
+                lens[c0:c1].data_ptr(), bits.data_ptr(),
+                planes[c0:c1].data_ptr(), c1 - c0, N,
+                match, mismatch, o1, e1, o2, e2, stream)
+            if rc != 0:
+                raise DeviceKernelError(
+                    f"fill_full kernel launch failed: cudaError {rc}")
+            count_launch(fill_rowruns, (c1 - c0, N))
     return planes
 
 
@@ -702,9 +704,10 @@ def fill_rowruns_banded(tT: torch.Tensor, qs: torch.Tensor, lens: torch.Tensor,
     planes = torch.empty((B, 2 * T), dtype=torch.uint8, device=dev)
     if B == 0:
         return planes
-    rc = lib.fill_banded_launch(
-        tT.data_ptr(), qs.data_ptr(), lens.data_ptr(), planes.data_ptr(), B, T,
-        match, mismatch, o1, e1, o2, e2, cuda_stream(dev))
+    with launch_stream(dev) as stream:
+        rc = lib.fill_banded_launch(
+            tT.data_ptr(), qs.data_ptr(), lens.data_ptr(), planes.data_ptr(),
+            B, T, match, mismatch, o1, e1, o2, e2, stream)
     if rc != 0:
         raise DeviceKernelError(f"fill_banded kernel launch failed: cudaError {rc}")
     count_launch(fill_rowruns_banded, (B, T))
@@ -745,16 +748,18 @@ def fill_traceback(tT: torch.Tensor, tQ: torch.Tensor, t_len: torch.Tensor,
     # batch so one launch's table stays under 1 GiB
     chunk = max(1, BITS_BYTES_PER_LAUNCH // (N * N))
     bits = torch.empty((min(B, chunk), N, N), dtype=torch.uint8, device=dev)
-    stream = cuda_stream(dev)
-    for c0 in range(0, B, chunk):
-        c1 = min(B, c0 + chunk)
-        rc = lib.fill_scan_launch(
-            tT[c0:c1].data_ptr(), tQ[c0:c1].data_ptr(), t_len[c0:c1].data_ptr(),
-            q_len[c0:c1].data_ptr(), bits.data_ptr(), packed.data_ptr() + c0,
-            c1 - c0, N, B, match, mismatch, o1, e1, o2, e2, stream)
-        if rc != 0:
-            raise DeviceKernelError(f"fill_scan kernel launch failed: cudaError {rc}")
-        count_launch(fill_traceback, (c1 - c0, N))
+    with launch_stream(dev) as stream:
+        for c0 in range(0, B, chunk):
+            c1 = min(B, c0 + chunk)
+            rc = lib.fill_scan_launch(
+                tT[c0:c1].data_ptr(), tQ[c0:c1].data_ptr(),
+                t_len[c0:c1].data_ptr(), q_len[c0:c1].data_ptr(),
+                bits.data_ptr(), packed.data_ptr() + c0,
+                c1 - c0, N, B, match, mismatch, o1, e1, o2, e2, stream)
+            if rc != 0:
+                raise DeviceKernelError(
+                    f"fill_scan kernel launch failed: cudaError {rc}")
+            count_launch(fill_traceback, (c1 - c0, N))
     return packed
 
 

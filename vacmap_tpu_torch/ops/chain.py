@@ -35,7 +35,7 @@ import torch
 
 from .._build import library
 from ..device import (
-    DeviceKernelError, check_tensor, count_launch, cuda_stream, device_call,
+    DeviceKernelError, check_tensor, count_launch, device_call, launch_stream,
 )
 from .chain_ref import ChainResult
 
@@ -544,11 +544,12 @@ def chain_scores_batch(
         ledger = (fixed_pen.data_ptr(), pre_pen.data_ptr())
     else:
         ledger = (None, None)
-    rc = lib.chain_dp_launch(
-        anchors.data_ptr(), n_valid.data_ptr(), skip_i.data_ptr(),
-        maxdiff_i.data_ptr(), S.data_ptr(), P.data_ptr(), *ledger, B, N,
-        VARIANTS.index(variant), _f32(0.01 * kmersize), int(maxgap),
-        _f32(skipcost), int(cluster), cuda_stream(dev))
+    with launch_stream(dev) as stream:
+        rc = lib.chain_dp_launch(
+            anchors.data_ptr(), n_valid.data_ptr(), skip_i.data_ptr(),
+            maxdiff_i.data_ptr(), S.data_ptr(), P.data_ptr(), *ledger, B, N,
+            VARIANTS.index(variant), _f32(0.01 * kmersize), int(maxgap),
+            _f32(skipcost), int(cluster), stream)
     if rc != 0:
         raise DeviceKernelError(f"chain_dp kernel launch failed: cudaError {rc}")
     count_launch(chain_scores_batch, (variant, B, N))
@@ -705,12 +706,13 @@ def chain_scores_batch_warm(
     scratch = torch.empty(
         (max(int(lib.chain_dp_warm_scratch_bytes(B, N)), 1),),
         dtype=torch.uint8, device=dev)
-    rc = lib.chain_dp_warm_launch(
-        anchors.data_ptr(), n_valid.data_ptr(), n_warm.data_ptr(),
-        skip_i.data_ptr(), maxdiff_i.data_ptr(), warm_S.data_ptr(),
-        warm_P.data_ptr(), S.data_ptr(), P.data_ptr(), scratch.data_ptr(),
-        B, N, row_lo, row_hi, VARIANTS.index(variant),
-        _f32(0.01 * kmersize), int(maxgap), _f32(skipcost), cuda_stream(dev))
+    with launch_stream(dev) as stream:
+        rc = lib.chain_dp_warm_launch(
+            anchors.data_ptr(), n_valid.data_ptr(), n_warm.data_ptr(),
+            skip_i.data_ptr(), maxdiff_i.data_ptr(), warm_S.data_ptr(),
+            warm_P.data_ptr(), S.data_ptr(), P.data_ptr(), scratch.data_ptr(),
+            B, N, row_lo, row_hi, VARIANTS.index(variant),
+            _f32(0.01 * kmersize), int(maxgap), _f32(skipcost), stream)
     if rc != 0:
         raise DeviceKernelError(
             f"chain_dp_warm kernel launch failed: cudaError {rc}")

@@ -31,7 +31,7 @@ import torch
 
 from .._build import library
 from ..device import (
-    DeviceKernelError, check_tensor, count_launch, cuda_stream, device_call,
+    DeviceKernelError, check_tensor, count_launch, device_call, launch_stream,
 )
 
 # buckets: (text columns T, pattern length in 32-bit words Wd), the
@@ -218,9 +218,10 @@ def myers_distances(text: torch.Tensor, peq: torch.Tensor,
     dist = torch.empty((B,), dtype=torch.int32, device=dev)
     if B == 0:
         return dist
-    rc = lib.myers_launch(text.data_ptr(), peq.data_ptr(), n_len.data_ptr(),
-                          m_len.data_ptr(), dist.data_ptr(), B, T, W,
-                          cuda_stream(dev))
+    with launch_stream(dev) as stream:
+        rc = lib.myers_launch(text.data_ptr(), peq.data_ptr(),
+                              n_len.data_ptr(), m_len.data_ptr(),
+                              dist.data_ptr(), B, T, W, stream)
     if rc != 0:
         raise DeviceKernelError(f"myers kernel launch failed: cudaError {rc}")
     count_launch(myers_distances, (B, T))

@@ -20,9 +20,14 @@ Two transports share the server core:
     executor (``--backend jax``);
   * cross-process (``start_fill_server`` / ``FillClient``):
     multiprocessing queues, so the CLI's fork workers all send their
-    fills to ONE device-owning process.  Only that process touches CUDA:
-    it is forked before the workers, from a parent that has not set
-    CUDA up, and the queues carry numpy arrays only.
+    fills to ONE device-owning process.  Only that process touches CUDA,
+    and only it imports torch and the kernel wrappers: it is forked
+    before the workers, from a parent that has imported neither, and the
+    queues carry numpy arrays only.  The client side (``FillClient``,
+    ``FillServerHandle``, ``start_fill_server``, ``decode_response``,
+    ``pack_pairs``) imports without torch; the functions that run in the
+    device's process import it where they start, as the reference's
+    import jax.
 
 Routes to the host, as in the reference: jobs over the largest bucket,
 with an empty side or with an ambiguous base (code 4); band escalations;
@@ -48,6 +53,7 @@ the same errors and have route counters of their own (``edit_routes``).
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import multiprocessing as mp
 import os
@@ -58,21 +64,18 @@ import sys
 import threading
 import time
 import traceback
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from .. import native
-from ..device import DeviceKernelError, resolve_device
-from ..ops import affine_fill
-from ..ops.affine_fill import (
-    BANDED, TorchFillAligner, _decode_packed_python, band_eligible,
-    rowruns_to_packed,
-)
+from ..errors import DeviceKernelError
 from ..ops.affine_ref import AlignResult
-from ..ops.myers import TorchMyersAligner, myers_distances
 from ..pipeline.extend import HostBatchFillAligner, _host_global_batch
+
+if TYPE_CHECKING:  # the device process's classes; they import torch
+    from ..ops.affine_fill import TorchFillAligner
+    from ..ops.myers import TorchMyersAligner
 
 log = logging.getLogger("vacmap_tpu_torch")
 
@@ -119,23 +122,59 @@ SUBMITTED, OFFLOADED, CAPPED, GOVERNED = range(4)
 # edit aligner, before ready, after a calibrated no-go)
 NOT_LIVE = 4
 WAIT_S = 600.0  # bound on one wait for the service's response
-FILL_KERNELS = {"fill_full": affine_fill.fill_rowruns,
-                "fill_banded": affine_fill.fill_rowruns_banded,
-                "fill_scan": affine_fill.fill_traceback}
+# bound on a stop's wait for the service's card check (see _card_missing)
+CARD_CHECK_S = 60.0
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of the fill kernels in this process so far."""
-    return {k: w.launches for k, w in FILL_KERNELS.items()}
+    from ..ops import affine_fill
+
+    return {"fill_full": affine_fill.fill_rowruns.launches,
+            "fill_banded": affine_fill.fill_rowruns_banded.launches,
+            "fill_scan": affine_fill.fill_traceback.launches}
 
 
-def _make_edit_aligner(device) -> Optional[TorchMyersAligner]:
+def _edit_launches() -> int:
+    """Launches of the Myers kernel in this process so far."""
+    from ..ops.myers import myers_distances
+
+    return myers_distances.launches
+
+
+def _make_edit_aligner(device) -> Optional["TorchMyersAligner"]:
     """The service's edit aligner: none by default, as in the reference
     (``edit_batch`` then answers all-None and the divergence filter keeps
     to its window-bound pass and host ladder); the Myers kernel's aligner
     on ``device`` under ``VACMAP_TPU_EDIT_DEVICE=1``."""
     if os.environ.get("VACMAP_TPU_EDIT_DEVICE") == "1":
+        from ..ops.myers import TorchMyersAligner
+
         return TorchMyersAligner(device)
+    return None
+
+
+def _card_missing(device: str) -> Optional[str]:
+    """Why ``device`` ("cuda", "cuda:N" or "cpu") names no visible card,
+    as the CUDA driver counts them (it honours CUDA_VISIBLE_DEVICES), or
+    None.  The service asks this first, in well under a second, and
+    imports torch (seconds) only after, so that a run which ends before
+    the service is ready still fails on a missing card."""
+    kind, _, index = device.partition(":")
+    if kind != "cuda":
+        return None
+    n = ctypes.c_int(0)
+    try:
+        drv = ctypes.CDLL("libcuda.so.1")
+        if drv.cuInit(0) != 0 or drv.cuDeviceGetCount(ctypes.byref(n)) != 0:
+            n.value = 0
+    except OSError:  # no driver
+        n.value = 0
+    if n.value < 1:
+        return f"device {device!r} requested but the CUDA driver sees no CUDA card"
+    if index.isdigit() and int(index) >= n.value:
+        return (f"device {device!r} requested but the CUDA driver sees "
+                f"{n.value} CUDA card{'s' if n.value > 1 else ''}")
     return None
 
 
@@ -232,6 +271,8 @@ class _ServerCore:
         # banded pseudo-buckets: band-eligible jobs take the banded
         # kernel; jobs it flags (band-edge escalation) go back to the
         # requester's host fill path via the "host" slot
+        from ..ops.affine_fill import BANDED
+
         self.band_ids = ()
         if getattr(aligner, "banded", False):
             self.band_ids = tuple(b | BANDED for b in self.buckets)
@@ -250,7 +291,7 @@ class _ServerCore:
 
     def _mark_launches(self):
         self._launch0 = launch_counts()
-        self._edit_launch0 = myers_distances.launches
+        self._edit_launch0 = _edit_launches()
 
     def prewarm(self):
         """One warm launch per route, then (unless forced) the calibrated
@@ -284,6 +325,8 @@ class _ServerCore:
         end) against the host striped kernel's single-core rate on the
         same jobs, times the number of clients (x0.75 margin: the
         service's own host work is taken from the same cores)."""
+        from ..ops.affine_fill import BANDED
+
         b_id = self.band_ids[0] if self.band_ids else self.buckets[0]
         b = b_id & ~BANDED
         B = self.shape_b[b_id]
@@ -388,6 +431,8 @@ class _ServerCore:
         """Flatten requests -> bucket groups -> padded device dispatches,
         in bulk numpy over the concatenated request buffers (no per-job
         Python: the service's host CPU is taken from the mapping cores)."""
+        from ..ops.affine_fill import BANDED, band_eligible
+
         cpu0 = time.thread_time()
         bufs = [p[3] for p in pending]
         all_buf = bufs[0] if len(bufs) == 1 else np.concatenate(bufs)
@@ -535,7 +580,7 @@ class _ServerCore:
                    (st["jobs"] - st["escal"]) / max(sub, 1), launches,
                    e_sub, e_sent, e_not_live, e_capped, e_governed,
                    st["edit_served"], st["edit_unrouted"], st["edit_calls"],
-                   myers_distances.launches - self._edit_launch0))
+                   _edit_launches() - self._edit_launch0))
 
     def _download_item(self, pending, job_req, job_ji, handles, unrouted,
                        resp_put):
@@ -645,6 +690,9 @@ def decode_response(msg, pairs, eqx: bool):
             sub = [pairs[ji] for ji in jidxs]
             decoded = native.decode_rowruns(lo, ex, sub, eqx=eqx)
             if decoded is None:  # native lib unavailable
+                from ..ops.affine_fill import (
+                    _decode_packed_python, rowruns_to_packed)
+
                 t_len = np.array([len(t) for t, _ in sub], np.int64)
                 q_len = np.array([len(q) for _, q in sub], np.int64)
                 packed = rowruns_to_packed(lo, ex, t_len, q_len, lo.shape[1])
@@ -654,6 +702,8 @@ def decode_response(msg, pairs, eqx: bool):
             sub = [pairs[ji] for ji in jidxs]
             decoded = native.decode_tb_ops(packed, sub, eqx=eqx)
             if decoded is None:
+                from ..ops.affine_fill import _decode_packed_python
+
                 decoded = _decode_packed_python(packed, sub, eqx=eqx)
         for col, ji in enumerate(jidxs):
             t, q = pairs[ji]
@@ -842,8 +892,10 @@ class AsyncFillAligner:
         return None
 
 
-def _make_aligner(buckets, device) -> TorchFillAligner:
+def _make_aligner(buckets, device) -> "TorchFillAligner":
     """The service's device aligner on ``device``."""
+    from ..ops.affine_fill import TorchFillAligner
+
     return TorchFillAligner(buckets=buckets, device=device)
 
 
@@ -864,22 +916,35 @@ def async_fill_aligner(device, buckets=DEFAULT_BUCKETS, force: bool = True,
 
 def _server_main(req_q, resp_qs, buckets, device, ready_evt, status, err_buf,
                  routes, prewarm: bool, force: bool, edit_val=None,
-                 edit_routes=None):
-    """Entry point of the device-owning service process.  ``edit_val`` is
-    set to 1 once the edit kernel takes traffic."""
+                 edit_routes=None, card_checked=None):
+    """Entry point of the device-owning service process: the only process
+    of the fork pool that imports torch.  ``edit_val`` is set to 1 once
+    the edit kernel takes traffic; ``card_checked`` is set once the
+    driver has shown ``device``'s card, or the service has failed."""
 
     def report(msg):
         err_buf.value = msg.encode("utf-8", "replace")[: len(err_buf) - 1]
         status.value = FAILED
+        if card_checked is not None:
+            card_checked.set()
 
     def edit_live():
         if edit_val is not None:
             edit_val.value = 1
 
     try:
+        missing = _card_missing(str(device))
+        if missing is not None:
+            raise DeviceKernelError(missing)
+        if card_checked is not None:
+            card_checked.set()
+        import torch
+
+        from ..device import resolve_device
+
         dev = resolve_device(str(device))
         if dev.type == "cpu":
-            # a forked child must not start the parent's intra-op pool
+            # one thread: the mapping workers have the other cores
             torch.set_num_threads(1)
         core = _ServerCore(_make_aligner(buckets, dev), buckets=buckets,
                            force=force, n_clients=len(resp_qs),
@@ -931,7 +996,7 @@ def _status_error(status, err_buf) -> Optional[str]:
 class FillServerHandle:
     def __init__(self, proc, req_q, resp_qs, ready_evt, status, err_buf,
                  pending_ctr, lat_sh, routes, edit_val=None,
-                 edit_routes=None):
+                 edit_routes=None, card_checked=None):
         self.proc = proc
         self.req_q = req_q
         self.resp_qs = resp_qs
@@ -943,6 +1008,7 @@ class FillServerHandle:
         self.routes = routes
         self.edit_val = edit_val  # shared flag: 1 = an edit kernel is live
         self.edit_routes = edit_routes
+        self.card_checked = card_checked  # shared flag: see _server_main
         self._stopped = False
 
     def client(self, worker_id: int) -> "FillClient":
@@ -979,7 +1045,13 @@ class FillServerHandle:
     def stop(self, timeout: float = 30.0) -> Optional[str]:
         """Drain and stop the service process; returns ``error()`` as it
         stood before the stop, or the process's own failure to exit
-        cleanly within ``timeout`` (then it is terminated)."""
+        cleanly within ``timeout`` (then it is terminated).  A service
+        that is not serving is terminated at once, once it has checked
+        for its card (``_card_missing``: no torch import is waited for),
+        so that a missing card is reported however early the stop."""
+        if (self.card_checked is not None and self.status.value == STARTING
+                and self.proc.is_alive()):
+            self.card_checked.wait(timeout=CARD_CHECK_S)
         msg = self.error()
         self._stopped = True
         try:
@@ -1023,15 +1095,17 @@ def start_fill_server(n_clients: int, device, buckets=DEFAULT_BUCKETS,
     routes = ctx.Array("q", 4)  # the clients' route counters
     edit_val = ctx.Value("i", 0)  # 1 once the service's edit kernel is live
     edit_routes = ctx.Array("q", 5)  # the edit kind's route counters
+    card_checked = ctx.Event()
     proc = ctx.Process(
-        target=_server_main,
+        target=_server_main, name="fill-service",
         args=(req_q, resp_qs, buckets, str(device), ready, status, err_buf,
-              routes, prewarm, force, edit_val, edit_routes),
+              routes, prewarm, force, edit_val, edit_routes, card_checked),
         daemon=True,
     )
     proc.start()
     handle = FillServerHandle(proc, req_q, resp_qs, ready, status, err_buf,
-                              pending, lat_sh, routes, edit_val, edit_routes)
+                              pending, lat_sh, routes, edit_val, edit_routes,
+                              card_checked)
     if wait_ready:
         try:
             serving = handle.wait_ready(ready_timeout)

@@ -18,7 +18,7 @@ from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
-from ..device import DeviceKernelError
+from ..errors import DeviceKernelError
 from ..ops.affine_ref import AlignResult, align2p
 from ..ops.edit import divergence_exceeds
 from ..seq import revcomp_codes

@@ -14,7 +14,7 @@ import numpy as np
 
 from .. import trace
 from ..config import AlignerConfig
-from ..device import DeviceKernelError
+from ..errors import DeviceKernelError
 from ..index.index import ReferenceIndex
 from ..seq import decode, encode, revcomp_codes
 from .chaining import chain_read
