@@ -24,9 +24,11 @@ the final line):
      chain kernel at B = 1 with an unsorted frontier (frozen rows exact)
      at N = 4096 (phase 6's 2 Mb contig gives it 100 kb blocks of about
      2,800 anchors, co-diagonal seeds merged, and a frontier of a few),
-     cold (no frontier) at N = 16,384 (phase 6's 480 kb contig), and at
+     cold (no frontier) at N = 16,384 (phase 6's 480 kb contig), at
      N = 32,768 (a block of repeats or of diverged sequence, whose seeds
-     do not merge); the three fill kernels at B = 256 and N (or T) = 256
+     do not merge), and at B = 3 behind ragged frontiers with one
+     problem not sorted by barrier (the kernel takes it row by row);
+     the three fill kernels at B = 256 and N (or T) = 256
      and 512, each also at the executor's launch size (B = 16 banded,
      B = EXEC_FULL_B full-width);
      then 2050
@@ -59,7 +61,11 @@ the final line):
      service's edit kind): same record check, the edit counters printed,
      and the Myers kernel must have launched on the executor, whose every
      read asks for distances (the fork pool asks only for reads that found
-     the service at its cap, and then mostly finds the gate shut).  Last,
+     the service at its cap, and then mostly finds the gate shut).  Mode
+     R (the global chain's refund variant) runs as two processes of its
+     own, the port's host path and the executor on the card: >= 99% of
+     reads with equal records, and the refund chain kernel launched (the
+     executor's chain stats line counts it).  Last,
      ``python -m vacmap_tpu_torch.prewarm --all`` runs as a process of its
      own and must exit 0.
   6. asm: one contig of 2 Mb cut from the genome with 0.3% divergence,
@@ -70,7 +76,13 @@ the final line):
      cuda` and by the port's host path `-mode asm --backend numpy`, each
      a process of its own.  The SAM records must be equal, every round-1
      block must have been chained by the warm kernel (none declined for
-     size or coordinates), and the kernel must have launched.
+     size or coordinates), and the kernel must have launched; the
+     stats line splits the stream chain's device calls into set-up,
+     preparation and packing, copies and kernel.  Then, in this process,
+     one read's anchors with 2^31 added to the reference coordinate: as
+     a round-1 block the card's stream backend declines them as
+     "coords" and the streaming chain equals the native DP's, and the
+     executor's device chain returns None for the shifted read.
   7. multi-process: two CLI processes of the port's executor started
      together on phase 5's corpus, `--backend jax --device cuda
      --coordinator 127.0.0.1:<free port> --num-processes 2 --process-id
@@ -737,6 +749,48 @@ def multi_process_phase(wd, common, env, host_recs, names, one_s, card):
     return launches
 
 
+def coords_phase(dev, index, cfg, read, card):
+    """One corpus read's anchors with 2^31 added to every reference
+    coordinate (the kernels' anchors are int32).  As a round-1 block
+    (sorted by read position) the card's stream backend declines it as
+    "coords" and the streaming chain equals the native DP's; the
+    executor's device chain returns None for the shifted read (the host
+    DP takes it) and a result for the read as it is."""
+    from vacmap_tpu_torch.ops.chain import TorchStreamChainBackend
+    from vacmap_tpu_torch.pipeline.asm import stream_chain
+    from vacmap_tpu_torch.pipeline.chaining import prepare_read_anchors
+    from vacmap_tpu_torch.pipeline.executor import TorchBatchExecutor
+    from vacmap_tpu_torch.pipeline.mapper import Mapper
+
+    seq = _BASES[read[1]].tobytes().decode()
+    _, A = prepare_read_anchors(index.seeds(seq, check_num=cfg.check_num),
+                                len(seq))
+    shifted = A.copy()
+    shifted[:, 1] += 2**31
+    block = shifted[np.argsort(shifted[:, 0], kind="stable")]
+    skip, maxdiff, maxgap = cfg.chain_params_global()
+    be = TorchStreamChainBackend(dev)
+    args = (15, skip, maxdiff, maxgap, "global_nocov", None)
+    got = stream_chain(iter([block]), *args, chain_backend=be)
+    want = stream_chain(iter([block]), *args)
+    ex = TorchBatchExecutor(Mapper(index, cfg), device=dev, device_fills=False)
+    res = ex._device_chain([A, shifted], "global", skip, maxdiff, maxgap, 15)
+    say(f"coords at 2^31: a block of {len(block)} anchors ({read[0]}, "
+        f"+2^31 on the reference coordinate): stream backend declined "
+        f"{be.declined}, engaged {be.engaged}; streaming chain equal to the "
+        f"native DP: {got == want} ({len(got)} path anchors); executor device "
+        f"chain of [read, shifted read]: "
+        f"{['None' if r is None else 'result' for r in res]} [{card}]")
+    if be.declined != {"variant": 0, "size": 0, "coords": 1} or be.engaged:
+        fail(f"coords at 2^31: the stream backend did not decline the block "
+             f"as coords: {be.declined}")
+    if got != want or len(got) <= 1:
+        fail("coords at 2^31: the streaming chain differs from the native DP")
+    if res[0] is None or res[1] is not None:
+        fail("coords at 2^31: the executor's device chain took the shifted "
+             "read, or not the read as it is")
+
+
 def per_call_s(torch, fn, reps):
     """Wall seconds per call of fn() (it synchronizes itself), and fn's
     last result."""
@@ -1077,6 +1131,66 @@ def main() -> int:
                  f"plain version")
         return err, ms, wrap_ms, plain_ms, b_ms, b_by
 
+    def warm_unsorted_phase():
+        """The tiled kernel at B = 3, global_nocov: round-1 blocks of
+        2,800, 1,500 and 900 anchors behind frontiers of 40, 7 and 0
+        (n_valid and n_warm ragged, N = 4096), the middle one with two
+        rows swapped past its frontier: that problem takes the kernel's
+        row-at-a-time route, the others the tiles.  A generator of its
+        own, so that every later phase keeps its inputs."""
+        rng_u = np.random.default_rng(SEED + 6)
+        n_warm = np.array([40, 7, 0], np.int32)
+        alist = []
+        for n, nw in zip((2_800, 1_500, 900), n_warm):
+            a = sv_anchors(rng_u, n, False)
+            a[:, 0] += 5000
+            f = a[rng_u.permutation(n)[:nw]].copy()
+            f[:, 0] -= rng_u.integers(100, 4000, nw)
+            alist.append(np.concatenate([f, a]) if nw else a)
+        i, j = 7 + 100, 7 + 1_000
+        alist[1][[i, j]] = alist[1][[j, i]]
+        arrays = chain.prepare_batch(alist, "global_nocov", skip_g, maxdiff_g)
+        N = arrays[0].shape[1]
+        w_S = np.zeros((3, N), np.float32)
+        w_P = np.zeros((3, N), np.int32)
+        for b, nw in enumerate(n_warm):
+            w_S[b, :nw] = np.sort(1000.0 - rng_u.random(nw) * 96.0)
+            w_P[b, :nw] = -rng_u.integers(0, 30000, nw) - 2
+        kw = dict(kmersize=15, maxdiff=maxdiff_g, maxgap=1000,
+                  skipcost=skip_g, variant="global_nocov")
+        x = chain.to_device(dev, *arrays, w_S, w_P, n_warm)
+        unsorted = chain._unsorted_reads(x[0], x[1], x[6], False).tolist()
+        if unsorted != [False, True, False]:
+            fail(f"chain_dp_large unsorted case is not what it claims: "
+                 f"{unsorted}")
+        launch = lambda: chain.chain_scores_batch_warm(*x, **kw)  # noqa: E731
+        launch()  # warm-up
+        wrap_ms, (S, P) = wall_ms(torch, launch, 5)
+        ms = device_ms(torch, launch, 3)
+        plain_ms, (S0, P0) = wall_ms(
+            torch, lambda: chain.chain_scores_batch_warm_ref(*x, **kw), 1)
+        S, P, S0, P0 = (t.cpu().numpy() for t in (S, P, S0, P0))
+        idx = np.arange(N)[None, :]
+        scored = (idx >= n_warm[:, None]) & (idx < arrays[1][:, None])
+        err = float(np.abs(S - S0)[scored].max())
+        agree = float((P == P0)[scored].mean())
+        rest_ok = (np.array_equal(S[~scored], S0[~scored])
+                   and np.array_equal(P[~scored], P0[~scored]))
+        ok = err <= CHAIN_ATOL and agree >= CHAIN_P_MIN and rest_ok
+        pairs = chain_pairs(arrays[0], arrays[1], n_warm, False)
+        b_ms, b_by = bound(pairs * OPS_PER_PAIR,
+                           nbytes(*x, torch.as_tensor(S), torch.as_tensor(P)))
+        say(f"kernel chain_dp_large global_nocov B=3 N={N} n={arrays[1].tolist()} "
+            f"n_warm={n_warm.tolist()}, problem 1 unsorted (row by row): "
+            f"max|dS|={err:.3g} P agreement={agree:.6f} frozen rows and rows "
+            f"past n_valid exact={rest_ok} kernel {ms:.3f} ms (wrapper "
+            f"{wrap_ms:.3f} ms) plain {plain_ms:.1f} ms bound {b_ms:.4f} ms "
+            f"({b_by}, {pairs} pairs) [{card}] {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("chain_dp_large B=3 with an unsorted problem disagrees with "
+                 "its plain version")
+        return err, ms, wrap_ms, plain_ms, b_ms, b_by
+
     try:
         res = [chain_phase("global", 16, 8192, sweep=True),
                chain_phase("global", 64, 2048),
@@ -1107,9 +1221,9 @@ def main() -> int:
         # (2,800 anchors behind a frontier of 4, N = 4096) and the cold DP
         # of the 480 kb contig (9,900 anchors, N = 16,384); then a block
         # whose seeds do not merge (18,000 anchors behind a 300-anchor
-        # frontier, N = 32,768)
+        # frontier, N = 32,768); then three ragged problems, one unsorted
         res = [warm_phase(2_800, 4), warm_phase(9_900, 0),
-               warm_phase(18_000, 300)]
+               warm_phase(18_000, 300), warm_unsorted_phase()]
     except SystemExit:
         raise
     except Exception as err:  # noqa: BLE001
@@ -1384,14 +1498,15 @@ def main() -> int:
         rds = os.path.join(wd, "reads.fa")
         out = {k: os.path.join(wd, f"{k}.sam")
                for k in ("executor", "host", "executor_timed", "fork_pool",
-                         "executor_edit", "fork_pool_edit")}
+                         "executor_edit", "fork_pool_edit", "host_R",
+                         "executor_R", "executor_R_plain")}
         stats_path = {k: os.path.join(wd, f"{k}_fill_stats.txt")
                       for k in ("executor", "fork_pool", "executor_edit",
-                                "fork_pool_edit")}
+                                "fork_pool_edit", "executor_R")}
         write_fasta(ref, [("chr1", gcodes)])
         write_fasta(rds, reads)
         t0 = time.perf_counter()
-        cli.load_or_build_index(ref, 15, 10, True)
+        index = cli.load_or_build_index(ref, 15, 10, True)
         say(f"index: built and saved in {time.perf_counter() - t0:.1f} s")
         common = ["-ref", ref, "-read", rds, "-mode", "H"]
 
@@ -1430,7 +1545,20 @@ def main() -> int:
         for name in ("executor_timed", "fork_pool"):
             base = name.split("_timed")[0]
             runs[f"{base}_edit"] = [*runs[name][:-1], out[f"{base}_edit"]]
-        secs = {}
+        # mode R (the global chain's refund variant): the host path, the
+        # executor on the card, and the executor on the plain versions
+        # (--device cpu, host fills), which gives the JAX package's
+        # executor's records
+        for name in ("host", "executor_timed"):
+            base = name.split("_timed")[0]
+            argv = runs[name][:-1]
+            argv[argv.index("-mode") + 1] = "R"
+            runs[f"{base}_R"] = [*argv, out[f"{base}_R"]]
+        argv = runs["executor_R"][:-2]
+        argv[argv.index("--device") + 1] = "cpu"
+        runs["executor_R_plain"] = [*argv, "--device-fills", "off", "-o",
+                                    out["executor_R_plain"]]
+        secs, errs = {}, {}
         for name, argv in runs.items():
             penv = dict(env)
             if name in stats_path:
@@ -1438,6 +1566,7 @@ def main() -> int:
             if name.endswith("_edit"):
                 penv["VACMAP_TPU_EDIT_DEVICE"] = "1"
             secs[name], p = cli_process(argv, penv)
+            errs[name] = p.stderr
             if p.returncode != 0:
                 fail(f"{name} CLI process exited {p.returncode}: "
                      f"{p.stderr[-3000:]}")
@@ -1454,6 +1583,14 @@ def main() -> int:
             except (OSError, KeyError, ValueError) as err:
                 fail(f"the {path}'s fill service wrote no stats line: {err!r}")
         path_launches["executor"]["chain_dp"] = chain_launches
+        line = [ln for ln in errs["executor_R"].splitlines()
+                if "executor chain device stats:" in ln]
+        if not line:
+            fail("the mode R executor printed no chain stats line")
+        kv = dict(x.split("=", 1) for x in
+                  line[-1].split("executor chain device stats:", 1)[1].split())
+        path_launches["executor_R"]["chain_dp"] = int(kv["chain_launches"])
+        refund_launches = {"executor_R": int(kv["refund_launches"])}
 
         # the prewarm entry point, a process of its own
         prewarm_s, p = cli_process(["-m", "vacmap_tpu_torch.prewarm", "--all"],
@@ -1491,6 +1628,7 @@ def main() -> int:
         if astats is None:
             fail("the asm CLI printed no chain device stats line: "
                  + asm_err["cuda"][-2000:])
+        coords_phase(dev, index, cfg0, reads[0], card)
 
         # ---- 7. multi-process: two executor processes, one gloo group
         path_launches["multi_process"] = multi_process_phase(
@@ -1508,7 +1646,6 @@ def main() -> int:
                      f"expected {want or 'no process'}")
 
     names = [n for n, _ in reads]
-    host_recs = recs["host"]
     for path in stats:
         say(f"{path} fill service stats: "
             + " ".join(f"{k}={v}" for k, v in stats[path].items())
@@ -1528,17 +1665,24 @@ def main() -> int:
             f"answered None at once: {st['edit_not_live']} no live kernel, "
             f"{st['edit_capped']} in-flight cap, {st['edit_governed']} latency "
             f"governor")
-        say(f"{path} launches: {path_launches[path]}")
+        say(f"{path} launches: {path_launches[path]}"
+            + (f"; chain_dp refund launches {refund_launches[path]}"
+               if path in refund_launches else ""))
     checks = []
     for path in stats:
         port_recs = recs[path]
+        # the executor's refund chain evaluates every candidate, as the
+        # JAX package's does; the host DP stops at the reference's early
+        # break, so in mode R the plain versions' executor is the reference
+        held_to = "executor_R_plain" if path == "executor_R" else "host"
+        host_recs = recs[held_to]
         aligned = sum(1 for n in names if any(
             not int(r[1]) & 4 for r in port_recs.get(n, [])))
         same = [n for n in names if port_recs.get(n) == host_recs.get(n)]
         differ = [n for n in names if port_recs.get(n) != host_recs.get(n)]
         agree = len(same) / len(names)
         say(f"e2e {path}: aligned {aligned}/{len(names)}; records equal to "
-            f"the host path for {len(same)}/{len(names)} reads "
+            f"the {held_to} path for {len(same)}/{len(names)} reads "
             f"({agree:.4f}); differ: {differ}")
         checks.append((path, aligned, agree))
     timed_same = recs["executor_timed"] == recs["executor"]
@@ -1555,10 +1699,25 @@ def main() -> int:
         f"({secs['executor_edit']:.3f} s), fork pool "
         f"{read_bases / secs['fork_pool_edit'] / 1e6:.4f} Mbp/s "
         f"({secs['fork_pool_edit']:.3f} s) [{card}]")
+    host_same = [n for n in names
+                 if recs["executor_R"].get(n) == recs["host_R"].get(n)]
+    plain_host = sum(recs["executor_R_plain"].get(n) == recs["host_R"].get(n)
+                     for n in names)
+    say(f"e2e mode R (one CLI process each, start to exit): host path "
+        f"{read_bases / secs['host_R'] / 1e6:.4f} Mbp/s ({secs['host_R']:.3f} "
+        f"s); port executor {read_bases / secs['executor_R'] / 1e6:.4f} Mbp/s "
+        f"({secs['executor_R']:.3f} s, --backend jax, chain_dp refund "
+        f"launches {refund_launches['executor_R']}); the executor on the "
+        f"plain versions {secs['executor_R_plain']:.3f} s (--device cpu). "
+        f"Records equal to the mode R host path: the card's executor "
+        f"{len(host_same)}/{len(names)}, the plain versions' {plain_host}/"
+        f"{len(names)} (their refund chain evaluates every candidate; the "
+        f"host DP stops at the reference's early break) [{card}]")
     need = {"executor": ("chain_dp", "fill_banded", "fill_full"),
             "fork_pool": ("fill_banded",),
             "executor_edit": ("fill_banded", "myers"),
-            "fork_pool_edit": ("fill_banded",)}
+            "fork_pool_edit": ("fill_banded",),
+            "executor_R": ("chain_dp", "fill_banded")}
     for path in ("executor", "fork_pool"):
         if path_launches[path]["myers"] or int(stats[path]["edit_sent"]):
             fail(f"{path}: edit jobs reached the service with the switch off: "
@@ -1567,6 +1726,8 @@ def main() -> int:
         if min(path_launches[path][k] for k in ks) <= 0:
             fail(f"{path}: a kernel of the path never launched: "
                  f"{path_launches[path]}")
+    if refund_launches["executor_R"] <= 0:
+        fail("executor_R: the refund chain kernel never launched")
     for path in stats:
         if int(stats[path]["jobs"]) <= 0:
             fail(f"the {path}'s fill service served no jobs")
@@ -1589,7 +1750,10 @@ def main() -> int:
         f"included, {int(astats['stream_max_rows'])} in the largest block); device {asm_secs['cuda']:.3f} s "
         f"({contig_bases / asm_secs['cuda'] / 1e6:.4f} Mbp/s; mapping alone "
         f"{mapping_seconds(asm_err['cuda']):.1f} s, stream chain device calls "
-        f"{astats['stream_device_s']:.3f} s of it), host path "
+        f"{astats['stream_device_s']:.6f} s of it: set-up "
+        f"{astats['setup_s']:.6f} s, prepare and pack {astats['prep_s']:.6f} "
+        f"s, copies {astats['copy_s']:.6f} s, kernel {astats['kernel_s']:.6f} "
+        f"s), host path "
         f"{asm_secs['host']:.3f} s ({contig_bases / asm_secs['host'] / 1e6:.4f} "
         f"Mbp/s; mapping alone {mapping_seconds(asm_err['host']):.1f} s), one "
         f"CLI process each, start to exit [{card}]")

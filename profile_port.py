@@ -36,10 +36,13 @@ of 20 kb), after building the index once:
      and each dispatch's longest text and largest pattern in 64-bit words;
   3. asm: chip_smoke.py's two contigs (2 Mb streaming, 480 kb per call)
      mapped by `-mode asm` as processes of their own for --runs rounds,
-     host path and `--backend jax --device cuda` in turns, then once in
-     this process under torch.profiler: device time of the tiled chain
-     kernel (in all and per launch) and of the copies, and its launches
-     by (variant, B, N).
+     host path and `--backend jax --device cuda` in turns (with --other
+     DIR also DIR's `--backend jax --device cuda`, DIR, this, this, DIR),
+     each with its chain device stats line (stream_device_s and, where
+     the tree has them, its set-up, prepare, copy and kernel parts), then
+     once in this process under torch.profiler: device time of the tiled
+     chain kernel (in all and per launch) and of the copies, and its
+     launches by (variant, B, N).
 Every result line carries the card's name and power limit.
 """
 
@@ -131,6 +134,7 @@ def main() -> int:
         ctg = os.path.join(wd, "contigs.fa")
         cs.write_fasta(ctg, contigs)
         trees = [("this tree", here)]
+        other = None
         if args.other:
             other = os.path.abspath(args.other)
             # its own libraries, built before anything is timed
@@ -238,14 +242,19 @@ def main() -> int:
 
         cbases = sum(len(c) for _, c in contigs)
         asm = ["-ref", ref, "-read", ctg, "-mode", "asm", "--force"]
-        asm_sides = {"asm host": ["--backend", "numpy"],
-                     "asm cuda": ["--backend", "jax", "--device", "cuda"]}
+        cuda = ["--backend", "jax", "--device", "cuda"]
+        asm_sides = {"asm host": (here, ["--backend", "numpy"]),
+                     "asm cuda": (here, cuda)}
+        if other:
+            asm_sides = {"asm cuda, other tree": (other, cuda), **asm_sides}
         asm_lines = []
         for r in range(args.runs):
             for side in (list(asm_sides) if r % 2 == 0 else list(asm_sides)[::-1]):
+                root, argv = asm_sides[side]
                 dt, p = cs.cli_process(
-                    ["-m", "vacmap_tpu_torch.cli", *asm, *asm_sides[side], "-o",
-                     os.path.join(wd, f"asm{r}.sam")], env)
+                    ["-m", "vacmap_tpu_torch.cli", *asm, *argv, "-o",
+                     os.path.join(wd, f"asm{r}.sam")],
+                    dict(env, PYTHONPATH=root), cwd=root)
                 if p.returncode != 0:
                     cs.fail(f"{side} CLI exited {p.returncode}: {p.stderr[-2000:]}")
                 stats = cs.asm_stats(p.stderr)

@@ -10,6 +10,7 @@ agreement >= 0.999 on the scored rows (f32 transcendentals may round
 differently in XLA and in PyTorch); frozen rows and rows past n_valid are
 exact.  The agreement rate of every case is printed."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -30,6 +31,7 @@ from vacmap_tpu.pipeline.asm import stream_chain as jax_pkg_stream_chain
 from vacmap_tpu.pipeline.mapper import Mapper
 from vacmap_tpu_torch import DeviceKernelError
 from vacmap_tpu_torch.config import AlignerConfig as PortConfig
+from vacmap_tpu_torch.ops import chain as chain_mod
 from vacmap_tpu_torch.index import ReferenceIndex as PortIndex
 from vacmap_tpu_torch.ops.chain import (
     MAX_ANCHORS, MAX_N, TorchChainBackend, TorchStreamChainBackend,
@@ -191,6 +193,121 @@ def test_stream_backends_give_the_same_S_and_P():
     np.testing.assert_allclose(S_t, S_j, atol=1e-3)
     assert np.array_equal(P_t, P_j)
     assert np.array_equal(P_t[:40], warm_P)
+
+
+def test_staged_stream_backend_matches_unstaged_and_jax():
+    """The backend packs a block's seven inputs into one staging buffer,
+    sends them in one copy and reads S and P back in one: over the
+    stream case's blocks it gives the (S, P) of the unstaged call (the
+    arrays sent one by one to chain_scores_batch_warm) bit for bit and
+    the JAX backend's within the stated tolerance, reuses its buffers,
+    grows them for a larger block, and fills in every stage counter."""
+    batches = _sv_batches(np.random.default_rng(8))
+    be = TorchStreamChainBackend("cpu")
+    seen = []
+
+    def recording(*args):
+        out = be(*args)
+        seen.append((args, out, be._host))
+        return out
+
+    args = (15, 40.0, 50, 1000, "global_nocov", None)
+    p_staged = stream_chain(iter(batches), *args, chain_backend=recording)
+    assert p_staged == stream_chain(iter(batches), *args)
+    assert len(seen) == 3 and all(h is seen[0][2] for _, _, h in seen)
+    for (linked, variant, k, skip, md, mg, w_S, w_P), (S, P), _ in seen:
+        arrays = prepare_batch([linked.astype(np.int64)], variant, skip, md)
+        n, N = len(linked), arrays[0].shape[1]
+        wS, wP = np.zeros((1, N), np.float32), np.zeros((1, N), np.int32)
+        wS[0, : len(w_S)] = w_S
+        wP[0, : len(w_P)] = w_P
+        S0, P0 = chain_scores_batch_warm(
+            *to_device("cpu", *arrays, wS, wP,
+                       np.array([len(w_S)], np.int32)),
+            kmersize=k, maxdiff=md, maxgap=mg, skipcost=skip, variant=variant)
+        assert np.array_equal(S, S0.numpy()[0, :n].astype(np.float64))
+        assert np.array_equal(P, P0.numpy()[0, :n].astype(np.int64))
+        S_j, P_j = JaxStreamChainBackend()(linked, variant, k, skip, md, mg,
+                                           w_S, w_P)
+        np.testing.assert_allclose(S, S_j, atol=1e-3)
+        assert np.array_equal(P, P_j)
+    assert be.engaged == 3 and be.setup_s >= 0
+    assert min(be.prep_s, be.kernel_s, be.copy_s) > 0
+    stages = be.setup_s + be.prep_s + be.copy_s + be.kernel_s
+    assert stages <= be.device_s + 1e-9 and stages >= 0.5 * be.device_s
+    # a block past the buffers' size grows them, and still equals JAX
+    big = np.concatenate(batches)[:300]
+    none = (np.zeros(0, np.float64), np.zeros(0, np.int64))
+    S, P = be(big, "global_nocov", 15, 40.0, 50, 1000, *none)
+    assert be._host is not seen[0][2]
+    assert be._host.numel() >= chain_mod._warm_words(1, 512)[1]
+    S_j, P_j = JaxStreamChainBackend()(big, "global_nocov", 15, 40.0, 50,
+                                       1000, *none)
+    np.testing.assert_allclose(S, S_j, atol=1e-3)
+    assert np.array_equal(P, P_j)
+
+
+_TENSOR_META = {"shape", "dim", "device", "dtype", "data_ptr",
+                "is_contiguous"}
+_READ_BACKS = {"tolist", "item", "cpu", "numpy", "synchronize"}
+
+
+def test_warm_wrapper_launches_without_a_read_back():
+    """The CUDA branch of chain_scores_batch_warm (everything after its
+    CPU return) reads no device value on the host: no .tolist(), .item(),
+    .cpu(), .numpy() or synchronize, no bool()/int()/float() of a tensor
+    and no condition on one; a tensor is read there only for its shape,
+    device, type or address (or compared with None).  The kernel takes the rows to score and
+    their order from device memory instead."""
+    tree = ast.parse(Path(chain_mod.__file__).read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == "chain_scores_batch_warm")
+    at = next(k for k, st in enumerate(fn.body) if isinstance(st, ast.If)
+              and "cpu" in ast.unparse(st.test))
+    branch = fn.body[at + 1 :]
+    parent = {}
+    for st in branch:
+        for node in ast.walk(st):
+            for child in ast.iter_child_nodes(node):
+                parent[child] = node
+    tensors = {a.arg for a in fn.args.args} | {"out"}
+
+    def tensor_valued(expr):
+        for node in ast.walk(expr):
+            if isinstance(node, ast.Name) and node.id in tensors:
+                up = parent.get(node)
+                meta = isinstance(up, ast.Attribute) and up.attr in _TENSOR_META
+                is_none = isinstance(up, ast.Compare) and all(
+                    isinstance(op, (ast.Is, ast.IsNot)) for op in up.ops)
+                if not (meta or is_none):
+                    return True
+            if (isinstance(node, ast.Attribute)
+                    and getattr(node.value, "id", "") == "torch"):
+                return True
+        return False
+
+    for st in branch:  # names bound to tensors in the branch
+        for node in ast.walk(st):
+            if isinstance(node, ast.Assign) and tensor_valued(node.value):
+                for t in node.targets:
+                    tensors.update(n.id for n in ast.walk(t)
+                                   if isinstance(n, ast.Name))
+    assert {"S", "P", "scratch"} <= tensors
+    launches = 0
+    for st in branch:
+        for node in ast.walk(st):
+            where = f"chain.py:{getattr(node, 'lineno', '?')}"
+            if isinstance(node, ast.Call):
+                f = node.func
+                assert getattr(f, "attr", "") not in _READ_BACKS, where
+                if getattr(f, "id", "") in ("bool", "int", "float"):
+                    assert not any(map(tensor_valued, node.args)), where
+                launches += getattr(f, "attr", "") == "chain_dp_warm_launch"
+            if isinstance(node, (ast.If, ast.While, ast.IfExp, ast.Assert)):
+                assert not tensor_valued(node.test), where
+            if isinstance(node, ast.BoolOp):
+                assert not any(map(tensor_valued, node.values)), where
+    assert launches == 1
 
 
 @pytest.mark.parametrize("cause", ["variant", "size", "coords"])

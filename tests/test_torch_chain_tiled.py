@@ -21,7 +21,6 @@ from vacmap_tpu.ops.chain_jax import chain_scores_batch as jax_chain_scores_batc
 from vacmap_tpu.ops.chain_jax import (
     chain_scores_batch_warm as jax_chain_scores_batch_warm,
 )
-from vacmap_tpu_torch import DeviceKernelError
 from vacmap_tpu_torch.ops import chain
 from vacmap_tpu_torch.ops.chain import (
     chain_scores_batch_ref, chain_scores_batch_tiled_ref,
@@ -286,11 +285,96 @@ def test_warm_tiled_matches_jax_scan(variant):
     assert np.array_equal(P_t[~scored], P_j[~scored])
 
 
-def test_warm_tiled_refuses_unsorted_rows():
-    rng = np.random.default_rng(1100)
-    arrays, w_S, w_P, nw, tile = _warm_case(rng, "ragged", "global_nocov")
-    arrays[0][0, [60, 120]] = arrays[0][0, [120, 60]]
-    with pytest.raises(DeviceKernelError):
-        chain_scores_batch_warm_tiled_ref(
-            *to_device("cpu", *arrays, w_S, w_P, nw), **KW,
-            variant="global_nocov", tile=tile)
+def _unsorted_warm_case(rng, variant):
+    """Three problems behind ragged frontiers, with ragged n_valid; in the
+    middle one two rows past n_warm are swapped, so it is not sorted by
+    barrier while the others are.  The rows to score hold what the caller
+    left there (2000.0): a row of the unsorted problem sees a candidate
+    after it with that S, as in the reference's scan, and the frontier's
+    scores (about 1000) do not hide it."""
+    n_warm, sizes = (17, 40, 0), (150, 90, 181)
+    alist = []
+    w_S, w_P = np.zeros((3, N), np.float32), np.zeros((3, N), np.int32)
+    for b, (nw, n) in enumerate(zip(n_warm, sizes)):
+        a = _sorted(chainy_anchors(rng, read_len=6000, noise=15)[:n], variant)
+        a[:, 0] += 500
+        f = a[rng.permutation(len(a))[:nw]].copy()
+        f[:, 0] -= rng.integers(50, 400, nw)
+        if b == 1:
+            a[[10, 60]] = a[[60, 10]]
+        alist.append(np.concatenate([f, a]) if nw else a)
+        w_S[b, :nw] = np.sort(1000.0 - rng.random(nw) * 96.0)
+        w_P[b, :nw] = -rng.integers(0, 20000, nw) - 2
+    arrays = _padded(alist, variant)
+    for b in range(3):
+        w_S[b, n_warm[b] :] = 2000.0
+        w_S[b, arrays[1][b] :] = 7.5
+        w_P[b, arrays[1][b] :] = -3
+    return arrays, w_S, w_P, np.array(n_warm, np.int32)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_warm_tiled_unsorted_rows_match_plain_and_jax(variant):
+    """Rows past n_warm out of barrier order, in one problem of a batch of
+    three: the tiled twin sends that problem row by row over every
+    candidate, as the kernel does, and gives the plain version's result
+    bit for bit, and the JAX warm scan's within the stated tolerance."""
+    rng = np.random.default_rng(1100 + VARIANTS.index(variant))
+    arrays, w_S, w_P, nw = _unsorted_warm_case(rng, variant)
+    x = to_device("cpu", *arrays, w_S, w_P, nw)
+    assert chain._unsorted_reads(x[0], x[1], x[6], _local(variant)).tolist() \
+        == [False, True, False]
+    kw = {**KW, "variant": variant}
+    want = chain_scores_batch_warm_ref(*x, **kw)
+    _assert_exact(chain_scores_batch_warm_tiled_ref(*x, **kw, tile=16), want)
+    S_j, P_j = (np.asarray(t) for t in jax_chain_scores_batch_warm(
+        *arrays, w_S, w_P, nw, **kw))
+    S_t, P_t = (t.numpy() for t in want)
+    idx = np.arange(N)[None, :]
+    frozen, past = idx < nw[:, None], idx >= arrays[1][:, None]
+    scored = ~frozen & ~past
+    np.testing.assert_allclose(S_t[scored], S_j[scored], atol=1e-3, rtol=1e-6)
+    agree = float(np.mean(P_t[scored] == P_j[scored]))
+    print(f"unsorted warm chain {variant}: P agreement {agree:.6f}")
+    assert np.array_equal(P_t, P_j)
+    assert np.array_equal(S_t[~scored], S_j[~scored])
+    # the case is what it claims: the tiles alone, which see no candidate
+    # at or past the row, give the unsorted problem another result
+    one = tuple(t[1:2] for t in x)
+    S1 = one[4].clone()
+    P1 = torch.where(torch.arange(N)[None, :] < one[6][:, None], one[5],
+                     torch.full_like(one[5], -1))
+    asm_geo = variant == "global_nocov"
+    chain._tiled_dp(one[0], one[1], one[2], one[3], S1, P1, one[6],
+                    int(one[6][0]), int(one[1][0]), False, chain._f32(0.15),
+                    KW["maxgap"], KW["skipcost"],
+                    "global" if asm_geo else variant, asm_geo, 16, 3)
+    assert not torch.equal(P1, want[1][1:2])
+
+
+def test_cold_unsorted_read_above_max_n_gives_the_plain_result():
+    """Above MAX_N chain_scores_batch takes the warm kernel cold on a card;
+    that route's twin gives the plain version's result on an unsorted
+    read beside a sorted one (here chain_scores_batch itself is the plain
+    version: CPU tensors)."""
+    rng = np.random.default_rng(1200)
+    width = 2 * chain.MAX_N
+    bad = _sorted(chainy_anchors(rng, read_len=8000, noise=30), "global")
+    bad[[40, 150]] = bad[[150, 40]]
+    alist = [_sorted(random_anchors(rng, 200), "global"), bad]
+    arrays = prepare_batch(alist, "global", KW["skipcost"], KW["maxdiff"])
+    pad = width - arrays[0].shape[1]
+    arrays = (np.pad(arrays[0], ((0, 0), (0, pad), (0, 0))), arrays[1],
+              np.pad(arrays[2], ((0, 0), (0, pad))),
+              np.pad(arrays[3], ((0, 0), (0, pad))))
+    x = to_device("cpu", *arrays)
+    assert x[0].shape[1] > chain.MAX_N
+    kw = {**KW, "variant": "global"}
+    want = chain_scores_batch_ref(*x, **kw)
+    _assert_exact(chain.chain_scores_batch(*x, **kw), want)
+    zeros = torch.zeros((2, width))
+    cold = chain_scores_batch_warm_tiled_ref(
+        *x, zeros, zeros.int(), torch.zeros(2, dtype=torch.int32), **kw)
+    _assert_exact(cold, want)
+    assert chain._unsorted_reads(x[0], x[1], torch.zeros_like(x[1]),
+                                 False).tolist() == [False, True]

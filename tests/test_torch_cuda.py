@@ -540,17 +540,101 @@ def test_cold_chain_above_shared_memory_limit_takes_the_tiled_kernel(dev):
     assert (S[n:] == 0).all() and (P[n:] == -1).all()
 
 
-def test_warm_chain_kernel_refuses_unsorted_rows(dev):
-    from vacmap_tpu_torch import DeviceKernelError
-    from vacmap_tpu_torch.ops.chain import chain_scores_batch_warm, to_device
+def _swap_past_warm(arrays, b, nw, rows):
+    """Swap two rows of problem b past its frontier: not sorted by
+    barrier any more."""
+    i, j = nw + rows[0], nw + rows[1]
+    arrays[0][b, [i, j]] = arrays[0][b, [j, i]]
+
+
+def _ragged_warm_batch(rng, variant):
+    """B = 3 behind frontiers of 40, 7 and 0 rows, n_valid ragged (no
+    multiple of the tile), the middle problem with two rows swapped past
+    its frontier; the rows to score hold 2000.0 (what the caller left
+    there), which the unsorted problem's rows see for candidates not yet
+    scored, as in the reference's scan."""
+    from vacmap_tpu_torch.ops.chain import prepare_batch
+
+    n_warm = np.array([40, 7, 0], np.int32)
+    alist = []
+    for nw, n in zip(n_warm, (1501, 900, 333)):
+        a = by_barrier(chainy_anchors(rng, read_len=40 * n, noise=n // 10)[:n],
+                       variant)
+        a[:, 0] += 5000
+        f = a[rng.permutation(n)[:nw]].copy()
+        f[:, 0] -= rng.integers(100, 4000, nw)
+        alist.append(np.concatenate([f, a]) if nw else a)
+    arrays = prepare_batch(alist, variant, 40.0, 50)
+    _swap_past_warm(arrays, 1, 7, (30, 600))
+    N = arrays[0].shape[1]
+    w_S = np.full((3, N), 7.5, np.float32)
+    w_P = np.full((3, N), -3, np.int32)
+    for b, nw in enumerate(n_warm):
+        w_S[b, :nw] = np.sort(1000.0 - rng.random(nw) * 96.0)
+        w_P[b, :nw] = -rng.integers(0, 30000, nw) - 2
+        w_S[b, nw : arrays[1][b]] = 2000.0
+    return arrays, w_S, w_P, n_warm
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_warm_chain_kernel_launches_without_sync_on_any_row_order(dev, variant):
+    """chain_scores_batch_warm under torch.cuda.set_sync_debug_mode("error")
+    (any host synchronisation raises): at B = 1 N = 4096 (the asm block
+    shape: 2,800 rows behind a frontier of 4) sorted and with two rows
+    swapped past the frontier, and at B = 3 with ragged frontiers and
+    n_valid, one problem unsorted; and chain_scores_batch above MAX_N with
+    an unsorted read beside a sorted one.  Every result equals the plain
+    version's on the card (S error 0, P agreement 1.000000)."""
+    from vacmap_tpu_torch.ops.chain import (
+        MAX_N, chain_scores_batch, chain_scores_batch_ref,
+        chain_scores_batch_warm, chain_scores_batch_warm_ref, prepare_batch,
+        to_device,
+    )
 
     rng = np.random.default_rng(44)
-    arrays, w_S, w_P, nw, nv = _warm_inputs(rng, 700, 40, "global_nocov")
-    arrays[0][0, [100, 400]] = arrays[0][0, [400, 100]]
-    with pytest.raises(DeviceKernelError):
-        chain_scores_batch_warm(
-            *to_device(dev, *arrays, w_S, w_P, nw), kmersize=15, maxdiff=50,
-            maxgap=1000, skipcost=40.0, variant="global_nocov")
+    kw = dict(CHAIN_KW, variant=variant)
+    sorted_1 = _warm_inputs(rng, 2800, 4, variant)[:4]
+    unsorted_1 = tuple(np.copy(a) for a in sorted_1[0]), *sorted_1[1:]
+    _swap_past_warm(unsorted_1[0], 0, 4, (100, 2000))
+    cases = {"B=1 sorted": sorted_1, "B=1 unsorted": unsorted_1,
+             "B=3 ragged, one unsorted": _ragged_warm_batch(rng, variant)}
+    for name, (arrays, w_S, w_P, nw) in cases.items():
+        x = to_device(dev, *arrays, w_S, w_P, nw)
+        torch.cuda.synchronize()
+        before = chain_scores_batch_warm.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            S, P = chain_scores_batch_warm(*x, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert chain_scores_batch_warm.launches == before + 1
+        S0, P0 = chain_scores_batch_warm_ref(*x, **kw)
+        S, P, S0, P0 = (t.cpu().numpy() for t in (S, P, S0, P0))
+        print(f"warm {variant} {name} N={S.shape[1]}: "
+              f"max|dS|={float(np.abs(S - S0).max()):.3g} "
+              f"P agreement={float(np.mean(P == P0)):.6f}")
+        assert np.array_equal(S, S0) and np.array_equal(P, P0), name
+    # the cold route above MAX_N (no refund: its ledger is chain_dp.cu's)
+    if variant == "refund":
+        return
+    bad = by_barrier(chainy_anchors(rng, read_len=12000, noise=30), variant)
+    bad[[40, 250]] = bad[[250, 40]]
+    big = by_barrier(chainy_anchors(rng, read_len=40 * 9000, noise=900), variant)
+    arrays = prepare_batch([big, bad], variant, 40.0, 50)
+    assert arrays[0].shape[1] > MAX_N
+    x = to_device(dev, *arrays)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        S, P = chain_scores_batch(*x, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    S0, P0 = chain_scores_batch_ref(*x, **kw)
+    S, P, S0, P0 = (t.cpu().numpy() for t in (S, P, S0, P0))
+    print(f"cold {variant} B=2 N={S.shape[1]} one unsorted: "
+          f"max|dS|={float(np.abs(S - S0).max()):.3g} "
+          f"P agreement={float(np.mean(P == P0)):.6f}")
+    assert np.array_equal(S, S0) and np.array_equal(P, P0)
 
 
 def test_asm_cli_on_card_matches_host_path(dev, tmp_path):

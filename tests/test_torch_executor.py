@@ -51,25 +51,67 @@ def port_mapper(world):
     """A fresh Mapper of the port (its own index, config and host
     layers) over the world's genome."""
     pidx = PortIndex.build(world[0], k=15, w=10)
-    return lambda **kw: PortMapper(pidx, PortConfig(mode="H"), **kw)
+    return lambda mode="H", **kw: PortMapper(pidx, PortConfig(mode=mode), **kw)
+
+
+@pytest.fixture(scope="module")
+def mode_reads(world):
+    """The world's reads and one more carrying a 1.5 kb tandem
+    duplication."""
+    genome, _, reads = world
+    rng = np.random.default_rng(4322)
+    st = int(rng.integers(0, 150_000 - 6000))
+    frag = genome["e1"][st : st + 6000]
+    return reads + [("r_dup", frag[:3000] + frag[1500:3000] + frag[3000:])]
+
+
+@pytest.fixture(scope="module")
+def jax_package_runs(world, mode_reads):
+    """mode -> (the host mapper's records, vacmap_tpu executor's), each
+    mode mapped once."""
+    idx = world[1]
+    runs = {}
+
+    def get(mode):
+        if mode not in runs:
+            cfg = AlignerConfig(mode=mode)
+            host = [Mapper(idx, cfg).map_read(n, s) for n, s in mode_reads]
+            jax_lines = BatchExecutor(
+                Mapper(idx, cfg), device_local_dp=True).map_batch(
+                    mode_reads, n_threads=3)
+            runs[mode] = (host, jax_lines)
+        return runs[mode]
+
+    return get
 
 
 def _cols(lines):
     return sorted(tuple(l.split("\t")[1:6]) for l in lines)
 
 
-def test_torch_executor_matches_jax_executor_and_host(world, port_mapper):
-    genome, idx, reads = world
-    cfg = AlignerConfig(mode="H")
-    host = [Mapper(idx, cfg).map_read(n, s) for n, s in reads]
-    jax_lines = BatchExecutor(Mapper(idx, cfg), device_local_dp=True).map_batch(
-        reads, n_threads=3)
-    m = port_mapper()
+@pytest.mark.parametrize("mode", ["H", "L", "S", "R"])
+def test_torch_executor_matches_jax_executor_and_host(
+        mode, mode_reads, jax_package_runs, port_mapper):
+    """The port's executor in each read mode (R: the global chain's refund
+    variant) against vacmap_tpu's executor and the host mapper."""
+    reads = mode_reads
+    host, jax_lines = jax_package_runs(mode)
+    m = port_mapper(mode)
     ex = TorchBatchExecutor(m, device="cpu")
     assert isinstance(m.chain_backend, TorchAggregatingChainBackend)
     # fills go through the in-process fill service, as in the reference
     assert isinstance(m.global_aligner, AsyncFillAligner)
     assert m.global_aligner.ready.wait(60)
+    # the global chains the device DP answered, by variant
+    chained = []
+    device_chain = ex._device_chain
+
+    def recorded(arrays, variant, *rest):
+        out = device_chain(arrays, variant, *rest)
+        chained.append((variant, sum(r is not None for r in out)))
+        return out
+
+    ex._device_chain = recorded
     try:
         got = ex.map_batch(reads, n_threads=3)
     finally:
@@ -78,6 +120,8 @@ def test_torch_executor_matches_jax_executor_and_host(world, port_mapper):
         assert g, name
         assert len(g) == len(j) == len(h), name
         assert _cols(g) == _cols(j) == _cols(h), name
+    assert {v for v, _ in chained} == {"refund" if mode == "R" else "global"}
+    assert sum(n for _, n in chained) == len(reads)
 
 
 def test_torch_executor_replaces_the_per_call_backend(world):

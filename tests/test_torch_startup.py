@@ -263,3 +263,41 @@ def test_setup_torch_installs_the_port_without_jax(monkeypatch):
                        "vacsim-tpu-torch = vacmap_tpu_torch.sim.vacsim:main"]
     data = dist.package_data["vacmap_tpu_torch"]
     assert {"csrc/*.cu", "csrc/*.cuh", "native/*.cpp"} <= set(data)
+
+
+def test_read_only_install_builds_under_the_cache(tmp_path):
+    """A copy of the package where nothing may be written (no write bit,
+    which binds root too) builds its host library under
+    ${XDG_CACHE_HOME}/vacmap_tpu_torch/<hash of its sources> and loads
+    it from there; this checkout keeps build/ beside the package."""
+    import shutil
+
+    site = tmp_path / "site"
+    shutil.copytree(REPO / "vacmap_tpu_torch", site / "vacmap_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    paths = [site] + list(site.rglob("*"))
+    for p in paths:
+        p.chmod(0o555 if p.is_dir() else 0o444)
+    env = dict(os.environ, XDG_CACHE_HOME=str(tmp_path / "cache"),
+               PYTHONPATH=str(site), PYTHONDONTWRITEBYTECODE="1")
+    env.pop("VACMAP_TPU_NATIVE_SO", None)
+    code = ("import sys\nsys.modules['torch'] = None\n"
+            "from vacmap_tpu_torch import _build, native\n"
+            "assert native.available()\n"
+            "print(_build.BUILD_DIR)\nprint(native._SO)\n")
+    try:
+        r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                           env=env, capture_output=True, text=True,
+                           timeout=240)
+    finally:
+        for p in paths:
+            p.chmod(0o755 if p.is_dir() else 0o644)
+    assert r.returncode == 0, r.stderr[-3000:]
+    build_dir, so = (Path(x) for x in r.stdout.split())
+    assert build_dir.parent == tmp_path / "cache" / "vacmap_tpu_torch"
+    assert len(build_dir.name) == 16 and so.parent == build_dir
+    assert so.exists()
+    assert not (site / "build").exists()
+    from vacmap_tpu_torch import _build
+
+    assert _build.BUILD_DIR == REPO / "build" / "vacmap_tpu_torch"

@@ -2,11 +2,15 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` (one compiler process per source,
 all started together) and links the objects into one shared library with
-a plain C interface, ``build/vacmap_tpu_torch/libvacmap_kernels.so``
-under the checkout root, loaded with ctypes.  The host C++ library
-(``native/``) builds into the same directory.  The build runs at first use
-and is reused while a hash of the sources and flags is unchanged.  A
-missing ``nvcc`` or a failed build raises: there is no fallback.
+a plain C interface, ``libvacmap_kernels.so`` in BUILD_DIR, loaded with
+ctypes.  The host C++ library (``native/``) builds into the same
+directory.  BUILD_DIR is ``build/vacmap_tpu_torch/`` beside the package
+(a checkout's ``build/``, which .gitignore lists) where that may be
+written; for a package installed where it may not,
+``${XDG_CACHE_HOME:-~/.cache}/vacmap_tpu_torch/<hash of the sources>``.
+The build runs at first use and is reused while a hash of the sources
+and flags is unchanged.  A missing ``nvcc`` or a failed build raises:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,8 +25,33 @@ from pathlib import Path
 
 from .errors import DeviceKernelError
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vacmap_tpu_torch"
+PKG = Path(__file__).resolve().parent
+CSRC = PKG / "csrc"
+
+
+def _writable(path: Path) -> bool:
+    """``path``, or the nearest directory above it that exists, may be
+    written: by this process's rights and by its mode bits (a directory
+    with no write bit is read-only to root too)."""
+    while not path.exists():
+        path = path.parent
+    return os.access(path, os.W_OK) and bool(path.stat().st_mode & 0o222)
+
+
+def _build_dir() -> Path:
+    beside = PKG.parent / "build" / "vacmap_tpu_torch"
+    if _writable(beside):
+        return beside
+    h = hashlib.sha256()
+    for p in (sorted(CSRC.glob("*.cu*"))
+              + sorted((PKG / "native").glob("*.cpp"))):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "vacmap_tpu_torch" / h.hexdigest()[:16]
+
+
+BUILD_DIR = _build_dir()
 LIB_NAME = "libvacmap_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,7 +71,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "chain_dp_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                         _F, _I, _P],
-    "chain_dp_warm_launch": [_P] * 10 + [_I, _I, _I, _I, _I, _F, _I, _F, _P],
+    "chain_dp_warm_launch": [_P] * 10 + [_I, _I, _I, _F, _I, _F, _P],
+    "chain_dp_warm_prepare": [_I],
     "chain_dp_warm_scratch_bytes": [_I, _I],
     "fill_full_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P],

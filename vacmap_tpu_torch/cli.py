@@ -423,8 +423,10 @@ def _run_executor(args, cfg, mapper, header, read_paths, device,
     finally:
         writer.close()
         ex.close()
-    log.info("executor chain device stats: chain_launches=%d",
-             chain_scores_batch.launches)
+    log.info("executor chain device stats: chain_launches=%d "
+             "refund_launches=%d", chain_scores_batch.launches,
+             sum(k for (v, _, _), k in chain_scores_batch.shapes.items()
+                 if v == "refund"))
     return count
 
 
@@ -537,10 +539,12 @@ def _run_asm(args, mapper, header, read_paths, shard) -> int:
             "asm chain device stats: stream_calls=%d stream_engaged=%d "
             "stream_rows=%d stream_max_rows=%d "
             "declined_variant=%d declined_size=%d declined_coords=%d "
-            "stream_device_s=%.3f chain_launches=%d warm_launches=%d",
+            "stream_device_s=%.6f setup_s=%.6f prep_s=%.6f copy_s=%.6f "
+            "kernel_s=%.6f chain_launches=%d warm_launches=%d",
             be.calls, be.engaged, be.rows, be.max_rows,
             be.declined["variant"],
             be.declined["size"], be.declined["coords"], be.device_s,
+            be.setup_s, be.prep_s, be.copy_s, be.kernel_s,
             chain_scores_batch.launches, chain_scores_batch_warm.launches)
     return count
 

@@ -1,8 +1,8 @@
 """Native (C++) host kernels, bound via ctypes.
 
 The library is compiled on demand with g++ from this package's own
-source into the checkout's build directory, beside the CUDA kernels
-(``build/vacmap_tpu_torch/libvacmap_native.so``); all callers degrade
+source into the build directory of the CUDA kernels (``_build.BUILD_DIR``:
+``build/vacmap_tpu_torch/`` in a checkout); all callers degrade
 gracefully to the numpy implementations when neither a built .so nor a
 compiler is available.
 """

@@ -620,9 +620,9 @@ def chain_scores_batch_warm_tiled_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``chain_scores_batch_warm_ref`` computed the way
     csrc/chain_dp_large.cu does: tiles from the smallest n_warm on,
-    frozen rows as candidates only, no ledger.  Rows past n_warm that are
-    not sorted by barrier raise DeviceKernelError, as the kernel's wrapper
-    does.  Equal to the plain version bit for bit."""
+    frozen rows as candidates only, no ledger.  A problem whose rows past
+    n_warm are not sorted by barrier takes the row-at-a-time route, as in
+    the kernel.  Equal to the plain version bit for bit."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown chain variant {variant!r}")
     asm_geo = variant == "global_nocov"
@@ -633,22 +633,37 @@ def chain_scores_batch_warm_tiled_ref(
     n_warm = torch.clamp(n_warm.to(torch.int32), 0, N)
     skip_i = skip_i.to(torch.float32)
     maxdiff_i = maxdiff_i.to(torch.int32)
+    warm_S = warm_S.to(torch.float32)
     warm_P = warm_P.to(torch.int32)
     jidx = torch.arange(N, dtype=torch.int32, device=anchors.device)
-    S = warm_S.to(torch.float32).clone()
+    S = warm_S.clone()
     P = torch.where(jidx[None, :] < n_warm[:, None], warm_P,
                     torch.full_like(warm_P, -1))
     if B == 0 or N == 0:
         return S, P
-    if bool(_unsorted_reads(anchors, n_valid, n_warm,
-                            v in ("fine", "mismatch")).any()):
-        raise DeviceKernelError(
-            "warm chain kernel: rows past n_warm are not sorted by barrier")
-    _tiled_dp(anchors, n_valid, skip_i, maxdiff_i, S, P, n_warm,
-              int(n_warm.min()), int(n_valid.max()), False,
-              _f32(0.01 * kmersize), maxgap, skipcost, v, asm_geo, tile,
-              n_split)
+    bad = _unsorted_reads(anchors, n_valid, n_warm, v in ("fine", "mismatch"))
+    if bool(bad.any()):
+        S[bad], P[bad] = chain_scores_batch_warm_ref(
+            anchors[bad], n_valid[bad], skip_i[bad], maxdiff_i[bad],
+            warm_S[bad], warm_P[bad], n_warm[bad], kmersize=kmersize,
+            maxdiff=maxdiff, maxgap=maxgap, skipcost=skipcost,
+            variant=variant)
+    good = ~bad
+    if bool(good.any()):
+        # the kernel's row range is every problem's, sorted or not
+        Sg, Pg = S[good], P[good]
+        _tiled_dp(anchors[good], n_valid[good], skip_i[good], maxdiff_i[good],
+                  Sg, Pg, n_warm[good], int(n_warm.min()), int(n_valid.max()),
+                  False, _f32(0.01 * kmersize), maxgap, skipcost, v, asm_geo,
+                  tile, n_split)
+        S[good], P[good] = Sg, Pg
     return S, P
+
+
+def _split_out(out: torch.Tensor, B: int, N: int, dev: torch.device):
+    """S (f32) and P (int32) views of a (2, B, N) int32 output buffer."""
+    check_tensor("out", out, torch.int32, (2, B, N), dev)
+    return out[0].view(torch.float32), out[1]
 
 
 def chain_scores_batch_warm(
@@ -656,21 +671,31 @@ def chain_scores_batch_warm(
     maxdiff_i: torch.Tensor, warm_S: torch.Tensor, warm_P: torch.Tensor,
     n_warm: torch.Tensor, *, kmersize: int = 15, maxdiff: int = 50,
     maxgap: int = 1000, skipcost: float = 40.0, variant: str = "global",
+    out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Warm-start (frontier-carry) chaining DP, counterpart of the
     reference's ``chain_scores_batch_warm``: warm_S (B, N) f32 and warm_P
     (B, N) int32 hold the fixed scores and the (negative) predecessor
     codes of the first n_warm (B,) rows.  Returns (S, P) of shape (B, N).
     CPU tensors take the plain version; CUDA tensors launch the tiled
-    kernel (or raise DeviceKernelError).  The kernel needs the rows in
-    [n_warm, n_valid) sorted by barrier, as every caller's are."""
+    kernel (or raise DeviceKernelError), which reads the rows to score
+    and their order on the card: the call does not wait for the device.
+    Rows may be in any order.  ``out``, a (2, B, N) int32 tensor on the
+    inputs' device, receives S (as f32, out[0]) and P (out[1]); the
+    returned S and P are then views of it."""
     kw = dict(kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
               skipcost=skipcost, variant=variant)
     dev = anchors.device
     if dev.type == "cpu":
-        return chain_scores_batch_warm_ref(anchors, n_valid, skip_i,
+        S, P = chain_scores_batch_warm_ref(anchors, n_valid, skip_i,
                                            maxdiff_i, warm_S, warm_P, n_warm,
                                            **kw)
+        if out is None:
+            return S, P
+        S_out, P_out = _split_out(out, *S.shape, dev)
+        S_out.copy_(S)
+        P_out.copy_(P)
+        return S_out, P_out
     if dev.type != "cuda":
         raise DeviceKernelError(f"chain kernel: unsupported device {dev}")
     if variant not in VARIANTS:
@@ -687,32 +712,23 @@ def chain_scores_batch_warm(
     check_tensor("n_warm", n_warm, torch.int32, (B,), dev)
     if anchors.data_ptr() % 16:
         raise DeviceKernelError("anchors must be 16-byte aligned")
-    S = torch.empty((B, N), dtype=torch.float32, device=dev)
-    P = torch.empty((B, N), dtype=torch.int32, device=dev)
+    if out is None:
+        S = torch.empty((B, N), dtype=torch.float32, device=dev)
+        P = torch.empty((B, N), dtype=torch.int32, device=dev)
+    else:
+        S, P = _split_out(out, B, N, dev)
     if B == 0 or N == 0:
         return S, P
-    # the rows to score, and the kernel's precondition: between n_warm and
-    # n_valid the barrier never decreases (one small reduction and one
-    # read-back per call, against a DP of N^2 / 2 pair scores)
-    unsorted = _unsorted_reads(anchors, n_valid, n_warm,
-                               variant in ("fine", "mismatch")).any()
-    row_lo, row_hi, bad = torch.stack(
-        [n_warm.min(), n_valid.max(), unsorted.to(torch.int32)]).tolist()
-    if bad:
-        raise DeviceKernelError(
-            "warm chain kernel: rows past n_warm are not sorted by barrier")
-    row_lo, row_hi = max(min(row_lo, N), 0), max(min(row_hi, N), 0)
     lib = library()
-    scratch = torch.empty(
-        (max(int(lib.chain_dp_warm_scratch_bytes(B, N)), 1),),
-        dtype=torch.uint8, device=dev)
+    scratch = torch.empty((lib.chain_dp_warm_scratch_bytes(B, N),),
+                          dtype=torch.uint8, device=dev)
     with launch_stream(dev) as stream:
         rc = lib.chain_dp_warm_launch(
             anchors.data_ptr(), n_valid.data_ptr(), n_warm.data_ptr(),
             skip_i.data_ptr(), maxdiff_i.data_ptr(), warm_S.data_ptr(),
             warm_P.data_ptr(), S.data_ptr(), P.data_ptr(), scratch.data_ptr(),
-            B, N, row_lo, row_hi, VARIANTS.index(variant),
-            _f32(0.01 * kmersize), int(maxgap), _f32(skipcost), stream)
+            B, N, VARIANTS.index(variant), _f32(0.01 * kmersize),
+            int(maxgap), _f32(skipcost), stream)
     if rc != 0:
         raise DeviceKernelError(
             f"chain_dp_warm kernel launch failed: cudaError {rc}")
@@ -832,19 +848,54 @@ class TorchChainBackend:
                              maxdiff, maxgap)[0]
 
 
+def _warm_words(B: int, N: int) -> Tuple[int, int]:
+    """(input words, all words) of a warm call's staging layout, in
+    int32 words: anchors (B, N, 4) first (16-byte aligned), skip_i,
+    maxdiff_i, warm_S, warm_P, n_valid, n_warm, padded to 16 bytes; then
+    the output, S and P (2, B, N)."""
+    n_in = (8 * B * N + 2 * B + 3) // 4 * 4
+    return n_in, n_in + 2 * B * N
+
+
+def _warm_views(buf: torch.Tensor, B: int, N: int):
+    """(anchors, n_valid, skip_i, maxdiff_i, warm_S, warm_P, n_warm, out)
+    as views of a 1-D int32 staging buffer in _warm_words' layout."""
+    BN = B * N
+    n_in = _warm_words(B, N)[0]
+    f32 = torch.float32
+    return (buf[: 4 * BN].view(B, N, 4),
+            buf[8 * BN : 8 * BN + B],
+            buf[4 * BN : 5 * BN].view(f32).view(B, N),
+            buf[5 * BN : 6 * BN].view(B, N),
+            buf[6 * BN : 7 * BN].view(f32).view(B, N),
+            buf[7 * BN : 8 * BN].view(B, N),
+            buf[8 * BN + B : 8 * BN + 2 * B],
+            buf[n_in : n_in + 2 * BN].view(2, B, N))
+
+
 class TorchStreamChainBackend:
     """stream_chain-compatible device backend for the asm frontier-carry
     chain (counterpart of the reference's JaxStreamChainBackend): one
     warm-start call per anchor block, N padded to a power of two.
 
+    A block's seven inputs are packed into one reusable host buffer
+    (pinned on a card) and sent with one copy into one device buffer,
+    whose views the kernel takes; S and P come back with one copy, the
+    block's only synchronisation.  Both buffers grow when a block needs
+    more.
+
     ``calls`` counts the blocks offered, ``engaged`` those the device
-    chained, ``device_s`` the wall time of the device calls (transfers
-    included), ``rows`` and ``max_rows`` the anchors (frontier included)
-    of the chained blocks in all and of the largest one, and ``declined``
-    the blocks left to the native DP by cause:
-    "variant" (scar, asm_fine: no device kernel), "size" (empty or over
-    ``max_anchors``) and "coords" (a reference coordinate of 2^31 or
-    more).  A failed device call raises DeviceKernelError."""
+    chained, ``device_s`` the wall time of the device calls, split into
+    ``setup_s`` (the first call's CUDA and kernel library set-up),
+    ``prep_s`` (prepare_batch, packing and unpacking), ``kernel_s``
+    (CUDA events around the launch; the host clock on the CPU) and
+    ``copy_s`` (the upload and read-back wall: from the upload's start
+    to the read-back's end, less kernel_s).  ``rows`` and ``max_rows``
+    are the anchors (frontier included) of the chained blocks in all and
+    of the largest one, and ``declined`` the blocks left to the native
+    DP by cause: "variant" (scar, asm_fine: no device kernel), "size"
+    (empty or over ``max_anchors``) and "coords" (a reference coordinate
+    of 2^31 or more).  A failed device call raises DeviceKernelError."""
 
     def __init__(self, device, max_anchors: int = MAX_STREAM_ANCHORS):
         self.device = torch.device(device)
@@ -852,9 +903,36 @@ class TorchStreamChainBackend:
         self.calls = 0
         self.engaged = 0
         self.device_s = 0.0
+        self.setup_s = 0.0
+        self.prep_s = 0.0
+        self.copy_s = 0.0
+        self.kernel_s = 0.0
         self.rows = 0
         self.max_rows = 0
         self.declined = {"variant": 0, "size": 0, "coords": 0}
+        self._events = None  # (start, end) on a card, once set up
+        self._host = self._dev = None
+
+    def _setup(self, variant: str) -> None:
+        with device_call("stream chain set-up"):
+            if self.device.type == "cuda":
+                with launch_stream(self.device):
+                    rc = library().chain_dp_warm_prepare(VARIANTS.index(variant))
+                if rc != 0:
+                    raise DeviceKernelError(
+                        f"chain_dp_warm set-up failed: cudaError {rc}")
+                self._events = tuple(torch.cuda.Event(enable_timing=True)
+                                     for _ in range(2))
+            else:
+                self._events = ()
+
+    def _buffers(self, words: int):
+        if self._host is None or self._host.numel() < words:
+            self._host = torch.empty(words, dtype=torch.int32,
+                                     pin_memory=self.device.type == "cuda")
+            self._dev = torch.empty(words, dtype=torch.int32,
+                                    device=self.device)
+        return self._host, self._dev
 
     def __call__(self, linked: np.ndarray, variant: str, kmersize: int,
                  skipcost: float, maxdiff: int, maxgap: int,
@@ -868,25 +946,52 @@ class TorchStreamChainBackend:
             self.declined[why] += 1
             return None
         t0 = time.perf_counter()
+        if self._events is None:
+            self._setup(variant)
+        t1 = time.perf_counter()
         anchors, n_valid, skip_i, maxdiff_i = prepare_batch(
             [linked.astype(np.int64)], variant, skipcost, maxdiff)
         N = anchors.shape[1]
+        n_in, words = _warm_words(1, N)
+        with device_call(f"{variant} warm chain staging"):
+            host, dev = self._buffers(words)
+        h = [t.numpy() for t in _warm_views(host, 1, N)]
+        h[0][...] = anchors
+        h[1][...] = n_valid
+        h[2][...] = skip_i
+        h[3][...] = maxdiff_i
         # the frontier's f64 scores become f32 here, as in the reference
-        w_S = np.zeros((1, N), np.float32)
-        w_P = np.zeros((1, N), np.int32)
-        w_S[0, : len(warm_S)] = warm_S
-        w_P[0, : len(warm_P)] = warm_P
-        n_warm = np.array([len(warm_S)], np.int32)
+        h[4].fill(0)
+        h[4][0, : len(warm_S)] = warm_S
+        h[5].fill(0)
+        h[5][0, : len(warm_P)] = warm_P
+        h[6][...] = len(warm_S)
+        t2 = time.perf_counter()
         with device_call(f"{variant} warm chain device call"):
-            S, P = chain_scores_batch_warm(
-                *to_device(self.device, anchors, n_valid, skip_i, maxdiff_i,
-                           w_S, w_P, n_warm),
-                kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
-                skipcost=skipcost, variant=variant)
-            out = (S.cpu().numpy().astype(np.float64)[0][:n],
-                   P.cpu().numpy().astype(np.int64)[0][:n])
+            dev[:n_in].copy_(host[:n_in], non_blocking=True)
+            x = _warm_views(dev, 1, N)
+            if self._events:
+                self._events[0].record(torch.cuda.current_stream(self.device))
+            k0 = time.perf_counter()
+            chain_scores_batch_warm(
+                *x[:7], kmersize=kmersize, maxdiff=maxdiff, maxgap=maxgap,
+                skipcost=skipcost, variant=variant, out=x[7])
+            k1 = time.perf_counter()
+            if self._events:
+                self._events[1].record(torch.cuda.current_stream(self.device))
+            host[n_in:words].copy_(dev[n_in:words])
+            t3 = time.perf_counter()
+            kernel = (self._events[0].elapsed_time(self._events[1]) / 1e3
+                      if self._events else k1 - k0)
+        out = (h[7][0].view(np.float32)[0, :n].astype(np.float64),
+               h[7][1, 0, :n].astype(np.int64))
+        t4 = time.perf_counter()
         self.engaged += 1
         self.rows += n
         self.max_rows = max(self.max_rows, n)
-        self.device_s += time.perf_counter() - t0
+        self.setup_s += t1 - t0
+        self.prep_s += (t2 - t1) + (t4 - t3)
+        self.kernel_s += kernel
+        self.copy_s += (t3 - t2) - kernel
+        self.device_s += t4 - t0
         return out
