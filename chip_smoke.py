@@ -2,6 +2,12 @@
 """Drive the vacmap_tpu_torch paths (mode H and asm) once on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --genome-layout [--other DIR]
+
+The second form runs phases 1 to 3 and the genome layout phase (6b)
+alone; with --other it then maps the layout's reads with DIR's executor
+(DIR a checkout, e.g. the parent commit unpacked with `git archive`) on
+the same .vmi and prints its chain stats line.
 
 Phases (each prints one result line; any failure exits non-zero before
 the final line):
@@ -79,10 +85,26 @@ the final line):
      size or coordinates), and the kernel must have launched; the
      stats line splits the stream chain's device calls into set-up,
      preparation and packing, copies and kernel.  Then, in this process,
-     one read's anchors with 2^31 added to the reference coordinate: as
-     a round-1 block the card's stream backend declines them as
-     "coords" and the streaming chain equals the native DP's, and the
-     executor's device chain returns None for the shifted read.
+     one read's anchors with 2^31 added to the reference coordinate (the
+     kernels take them renumbered, ops.chain.device_coords): as a
+     round-1 block the card's stream backend chains them and the
+     streaming chain equals the native DP's, and the executor's device
+     chain gives the shifted read the read's own S and P bit for bit; a
+     copy that cannot fit even renumbered is declined as "coords";
+  6b. genome layout: a reference laid out like a human one past 2^31 --
+     chrA (20 Mb, a copy of the 100 Mb genome's start), a spacer of N,
+     and the genome as chrB from 2^31 + 1 Mb on -- indexed once in this
+     process into a .vmi that every CLI takes.  Phase 5's reads (all
+     past 2^31) and 32 more from chrB's copied part (anchors on both
+     sides of 2^31) are mapped by the executor on the card and by the
+     host path, a 2 Mb contig from the copied part by `-mode asm` on the
+     card and on the host path, each a process of its own.  Every read
+     aligned, records (SAM columns 1-6) equal to the host path's for
+     >= 99% of reads and for every read from the copied part, the asm
+     records equal with every round-1 block chained by the warm kernel,
+     no read, job or block declined for coordinates, and the executor's
+     global chain on the card for every read (the `executor chain device
+     stats` line's counts by cause);
   7. multi-process: two CLI processes of the port's executor started
      together on phase 5's corpus, `--backend jax --device cuda
      --coordinator 127.0.0.1:<free port> --num-processes 2 --process-id
@@ -158,6 +180,12 @@ E2E_AGREE_MIN = 0.99
 _BASES = np.frombuffer(b"ACGT", np.uint8)
 ASM_BIG, ASM_DIV = 2_000_000, 0.003
 ASM_SMALL, ASM_SMALL_DIV = 480_000, 0.06
+# the genome layout: chrA (chrB's first LAYOUT_A bases), a spacer of N,
+# then chrB (the 100 Mb genome) from LAYOUT_B_START on, past 2^31
+LAYOUT_A = 20_000_000
+LAYOUT_B_START = 2**31 + 1_000_000
+N_DUP_READS = 32
+LAYOUT_ONLY = "--genome-layout"  # this script's genome layout phase alone
 PEAK_OPS = 67e12      # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 OPS_PER_PAIR = 80     # one pair score of the chain DP (csrc/chain_pair.cuh)
@@ -474,28 +502,36 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def sv_contig(gcodes, st):
+    """ASM_BIG bases of the genome from st on, less a 2.5 kb deletion at
+    700 kb, with a 5 kb inversion at 1.3 Mb."""
+    big = gcodes[st : st + ASM_BIG + 2500].copy()
+    big = np.concatenate([big[:700_000], big[702_500:]])
+    big[1_300_000:1_305_000] = revcomp_codes(big[1_300_000:1_305_000])
+    return big
+
+
 def asm_contigs(rng, gcodes):
     """Two assembly contigs cut from the genome: 2 Mb with 0.3%
     divergence, a 2.5 kb deletion and a 5 kb inversion; 480 kb with 6%
     divergence, which leaves more than 8192 anchors (at assembly-like
     divergence co-diagonal seeds merge into a few thousand)."""
-    st = int(rng.integers(0, len(gcodes) - ASM_BIG - 10_000))
-    big = gcodes[st : st + ASM_BIG + 2500].copy()
-    big = np.concatenate([big[:700_000], big[702_500:]])
-    big[1_300_000:1_305_000] = revcomp_codes(big[1_300_000:1_305_000])
+    big = sv_contig(gcodes,
+                    int(rng.integers(0, len(gcodes) - ASM_BIG - 10_000)))
     st2 = int(rng.integers(0, len(gcodes) - ASM_SMALL))
     small = gcodes[st2 : st2 + ASM_SMALL]
     return [("asm_contig_2mb", mutate_codes(rng, big, ASM_DIV)),
             ("asm_contig_480kb", mutate_codes(rng, small, ASM_SMALL_DIV))]
 
 
-def asm_stats(stderr):
-    """The asm CLI's chain device stats line as {key: number}."""
-    for line in stderr.splitlines():
-        if "asm chain device stats:" in line:
-            kv = line.split("asm chain device stats:", 1)[1].split()
-            return {k: float(v) for k, v in (x.split("=", 1) for x in kv)}
-    return None
+def log_stats(stderr, tag):
+    """A CLI's ``<tag>: k=v ...`` log line (its last) as {k: number}, or
+    None."""
+    lines = [ln for ln in stderr.splitlines() if f"{tag}:" in ln]
+    if not lines:
+        return None
+    kv = lines[-1].split(f"{tag}:", 1)[1].split()
+    return {k: float(v) for k, v in (x.split("=", 1) for x in kv)}
 
 
 def mapping_seconds(stderr):
@@ -641,11 +677,8 @@ def startup_windows(wd, ref, reads_fa, contigs_fa, env, card, trees,
                 if os.path.exists(log):
                     with open(log) as f:
                         loaded = [ln.split(" ", 1)[1].strip() for ln in f]
-                launches = {"chain_dp": int(w.split("=")[1])
-                            for ln in p.stderr.splitlines()
-                            if "executor chain device stats" in ln
-                            for w in ln.split()
-                            if w.startswith("chain_launches=")}
+                ex = log_stats(p.stderr, "executor chain device stats")
+                launches = {"chain_dp": int(ex["chain_launches"])} if ex else {}
                 if os.path.exists(stats):
                     launches.update(read_stats(stats)[1])
                 out.setdefault((label, name), []).append((dt, loaded))
@@ -711,12 +744,10 @@ def multi_process_phase(wd, common, env, host_recs, names, one_s, card):
                   for n in names)
     launches = {"chain_dp": 0}
     for pid, err in enumerate(errs):
-        line = [ln for ln in err.splitlines()
-                if "executor chain device stats:" in ln]
-        if not line:
+        ex = log_stats(err, "executor chain device stats")
+        if ex is None:
             fail(f"multi-process: process {pid} printed no chain stats line")
-        launches["chain_dp"] += int(line[-1].split("chain_launches=")[1]
-                                    .split()[0])
+        launches["chain_dp"] += int(ex["chain_launches"])
         try:
             _, fills = read_stats(os.path.join(
                 wd, f"multi_process_{pid}_fill_stats.txt"))
@@ -751,11 +782,14 @@ def multi_process_phase(wd, common, env, host_recs, names, one_s, card):
 
 def coords_phase(dev, index, cfg, read, card):
     """One corpus read's anchors with 2^31 added to every reference
-    coordinate (the kernels' anchors are int32).  As a round-1 block
-    (sorted by read position) the card's stream backend declines it as
-    "coords" and the streaming chain equals the native DP's; the
-    executor's device chain returns None for the shifted read (the host
-    DP takes it) and a result for the read as it is."""
+    coordinate (the kernels' anchors are int32; each problem's reference
+    column is renumbered, ops.chain.device_coords).  As a round-1 block
+    (sorted by read position) the card's stream backend chains it, and
+    the streaming chain equals the native DP's; the executor's device
+    chain gives the shifted read the result of the read as it is, bit for
+    bit.  A copy whose last anchor sits 2^29 read bases on and 2^32
+    further on the reference cannot fit even renumbered (one cut gap
+    alone passes 2^30): declined as "coords", chained by the native DP."""
     from vacmap_tpu_torch.ops.chain import TorchStreamChainBackend
     from vacmap_tpu_torch.pipeline.asm import stream_chain
     from vacmap_tpu_torch.pipeline.chaining import prepare_read_anchors
@@ -768,27 +802,197 @@ def coords_phase(dev, index, cfg, read, card):
     shifted = A.copy()
     shifted[:, 1] += 2**31
     block = shifted[np.argsort(shifted[:, 0], kind="stable")]
+    wide = block.copy()
+    wide[-1, 0] = 2**29
+    wide[-1, 1] += 2**32
     skip, maxdiff, maxgap = cfg.chain_params_global()
     be = TorchStreamChainBackend(dev)
     args = (15, skip, maxdiff, maxgap, "global_nocov", None)
-    got = stream_chain(iter([block]), *args, chain_backend=be)
-    want = stream_chain(iter([block]), *args)
+    got = [stream_chain(iter([b]), *args, chain_backend=be)
+           for b in (block, wide)]
+    want = [stream_chain(iter([b]), *args) for b in (block, wide)]
     ex = TorchBatchExecutor(Mapper(index, cfg), device=dev, device_fills=False)
     res = ex._device_chain([A, shifted], "global", skip, maxdiff, maxgap, 15)
+    same = (None not in res
+            and np.array_equal(res[0].S.view(np.int64), res[1].S.view(np.int64))
+            and np.array_equal(res[0].P, res[1].P))
     say(f"coords at 2^31: a block of {len(block)} anchors ({read[0]}, "
-        f"+2^31 on the reference coordinate): stream backend declined "
-        f"{be.declined}, engaged {be.engaged}; streaming chain equal to the "
-        f"native DP: {got == want} ({len(got)} path anchors); executor device "
-        f"chain of [read, shifted read]: "
-        f"{['None' if r is None else 'result' for r in res]} [{card}]")
-    if be.declined != {"variant": 0, "size": 0, "coords": 1} or be.engaged:
-        fail(f"coords at 2^31: the stream backend did not decline the block "
-             f"as coords: {be.declined}")
-    if got != want or len(got) <= 1:
-        fail("coords at 2^31: the streaming chain differs from the native DP")
-    if res[0] is None or res[1] is not None:
-        fail("coords at 2^31: the executor's device chain took the shifted "
-             "read, or not the read as it is")
+        f"+2^31 on the reference coordinate) and a copy that cannot fit: "
+        f"stream backend engaged {be.engaged}, declined {be.declined}; "
+        f"streaming chains equal to the native DP's: "
+        f"{[g == w for g, w in zip(got, want)]} ({len(got[0])} path "
+        f"anchors); executor device chain of [read, shifted read]: "
+        f"{['None' if r is None else 'result' for r in res]}, bit-equal "
+        f"{same}, declined {ex.declined} [{card}]")
+    if be.engaged != 1 or be.declined != {"variant": 0, "size": 0,
+                                          "coords": 1}:
+        fail(f"coords at 2^31: the stream backend did not chain the block "
+             f"and decline only the copy that cannot fit: engaged "
+             f"{be.engaged}, declined {be.declined}")
+    if got != want or len(got[0]) <= 1:
+        fail("coords at 2^31: a streaming chain differs from the native DP")
+    if not same or any(ex.declined.values()):
+        fail("coords at 2^31: the executor's device chain of the shifted "
+             "read is not the read's")
+
+
+def layout_reads(gcodes, reads):
+    """The genome layout's reads: phase 5's, then N_DUP_READS of 20 kb at
+    5% error from chrB's first LAYOUT_A bases, which chrA copies."""
+    rng = np.random.default_rng(SEED + 14)
+    dup = []
+    for i in range(N_DUP_READS):
+        st = int(rng.integers(0, LAYOUT_A - READ_LEN))
+        dup.append((f"dup_read_{i}",
+                    mutate_codes(rng, gcodes[st : st + READ_LEN], ERR)))
+    return reads + dup
+
+
+def genome_layout_phase(wd, gcodes, reads, env, card, other=None):
+    """A reference laid out like a human one past 2^31: chrA (chrB's first
+    LAYOUT_A bases), a spacer of N, chrB (the 100 Mb genome) from
+    LAYOUT_B_START on.  Its .vmi is built here once and every CLI takes
+    it.  Maps layout_reads with the executor on the card and with the
+    host path, then a 2 Mb asm contig cut from chrB's copied part with
+    -mode asm on the card and on the host path, each a process of its own.
+    Every read aligned; records equal to the host path's for >= 99% of
+    reads and for every read from the copied part; the asm records equal
+    and every round-1 block chained by the warm kernel; no read, job or
+    block declined for coordinates; the executor's global chain took
+    every read.  Given ``other`` (a checkout root), its executor then maps
+    the same reads on the same .vmi, and its stats line is printed.
+    Returns the card processes' launches."""
+    from vacmap_tpu_torch.config import AlignerConfig
+    from vacmap_tpu_torch.index import ReferenceIndex
+
+    t0 = time.perf_counter()
+    contigs = {"chrA": _BASES[gcodes[:LAYOUT_A]].tobytes().decode(),
+               "spacer": "N" * (LAYOUT_B_START - LAYOUT_A),
+               "chrB": _BASES[gcodes].tobytes().decode()}
+    vmi = os.path.join(wd, "layout.vmi")
+    index = ReferenceIndex.build(contigs, k=15, w=10)
+    index.save(vmi)
+    del contigs
+    build_s = time.perf_counter() - t0
+    lreads = layout_reads(gcodes, reads)
+    names = [n for n, _ in lreads]
+    # the copied part's reads whose anchors lie on both sides of 2^31
+    check_num = AlignerConfig(mode="H").check_num
+    across = 0
+    for _, codes in lreads[len(reads):]:
+        y = index.seeds(_BASES[codes].tobytes().decode(),
+                        check_num=check_num)[:, 1]
+        across += bool(len(y)) and (y.min() < LAYOUT_A
+                                    and y.max() >= LAYOUT_B_START)
+    del index
+    rds = os.path.join(wd, "layout_reads.fa")
+    write_fasta(rds, lreads)
+    ctg = os.path.join(wd, "layout_contig.fa")
+    rng = np.random.default_rng(SEED + 15)
+    big = sv_contig(gcodes,
+                    int(rng.integers(0, LAYOUT_A - ASM_BIG - 10_000)))
+    write_fasta(ctg, [("layout_contig_2mb", mutate_codes(rng, big, ASM_DIV))])
+    out = {k: os.path.join(wd, f"layout_{k}.sam")
+           for k in ("executor", "host", "asm_cuda", "asm_host", "other")}
+    fill_stats = os.path.join(wd, "layout_fill_stats.txt")
+    common = ["-m", "vacmap_tpu_torch.cli", "-ref", vmi]
+    runs = {
+        "executor": [*common, "-read", rds, "-mode", "H", "--backend", "jax",
+                     "--device", "cuda", "-o", out["executor"]],
+        "host": [*common, "-read", rds, "-mode", "H", "--backend", "numpy",
+                 "--device-fills", "off", "-o", out["host"]],
+        "asm_cuda": [*common, "-read", ctg, "-mode", "asm", "--backend",
+                     "jax", "--device", "cuda", "-o", out["asm_cuda"]],
+        "asm_host": [*common, "-read", ctg, "-mode", "asm", "--backend",
+                     "numpy", "-o", out["asm_host"]],
+    }
+    secs, errs = {}, {}
+    for name, argv in runs.items():
+        penv = dict(env, VACMAP_TPU_FILL_STATS=fill_stats) \
+            if name == "executor" else env
+        secs[name], p = cli_process(argv, penv)
+        errs[name] = p.stderr
+        if p.returncode != 0:
+            fail(f"genome layout: {name} CLI process exited {p.returncode}: "
+                 f"{p.stderr[-3000:]}")
+    ex = log_stats(errs["executor"], "executor chain device stats")
+    asm = log_stats(errs["asm_cuda"], "asm chain device stats")
+    if ex is None or asm is None:
+        fail("genome layout: a card process printed no chain stats line")
+    try:
+        fills = read_stats(fill_stats)[1]
+    except (OSError, KeyError, ValueError) as err:
+        fail(f"genome layout: the executor's fill service wrote no stats "
+             f"line: {err!r}")
+    recs = {k: sam_records(v) for k, v in out.items() if os.path.exists(v)}
+    same = [n for n in names if recs["executor"].get(n) == recs["host"].get(n)]
+    dup_names = names[len(reads):]
+    dup_same = [n for n in dup_names if n in same]
+    aligned = sum(any(not int(r[1]) & 4 for r in recs["executor"].get(n, []))
+                  for n in names)
+    on = {c: sum(r[2] == c for v in recs["host"].values() for r in v)
+          for c in ("chrA", "chrB")}
+    asm_same = recs["asm_cuda"] == recs["asm_host"] and bool(recs["asm_host"])
+    round1 = int(asm["stream_calls"] - asm["declined_variant"])
+    declines = {k: int(v) for k, v in ex.items() if "declined" in k}
+    declines.update({f"asm_{k}": int(v) for k, v in asm.items()
+                     if "declined" in k})
+    say(f"genome layout (chrA {LAYOUT_A} bp, N spacer, chrB {GENOME_LEN} bp "
+        f"from {LAYOUT_B_START}): .vmi built and saved in this process in "
+        f"{build_s:.1f} s; {len(names)} reads ({len(dup_names)} from chrB's "
+        f"copied part): executor {secs['executor']:.3f} s, host path "
+        f"{secs['host']:.3f} s (one CLI process each, start to exit); "
+        f"aligned {aligned}/{len(names)}; records equal to the host path for "
+        f"{len(same)}/{len(names)} ({len(same) / len(names):.4f}), of the "
+        f"copied part's {len(dup_same)}/{len(dup_names)} ({across} with "
+        f"anchors on both sides of 2^31); host records on "
+        f"chrA {on['chrA']}, on chrB {on['chrB']}; global chain on the card "
+        f"{int(ex['global_chained'])} reads, local and other jobs "
+        f"{int(ex['backend_chained'])}; chain_dp launches "
+        f"{int(ex['chain_launches'])}, fill launches {fills} [{card}]")
+    say(f"genome layout asm (2 Mb contig from chrB's copied part): card "
+        f"{secs['asm_cuda']:.3f} s, host path {secs['asm_host']:.3f} s; "
+        f"records equal: {asm_same}; round-1 blocks chained by the kernel "
+        f"{int(asm['stream_engaged'])}/{round1} ({int(asm['stream_rows'])} "
+        f"anchors, {int(asm['stream_max_rows'])} in the largest block); "
+        f"warm launches {int(asm['warm_launches'])}, chain_dp "
+        f"{int(asm['chain_launches'])}; declines by cause {declines} "
+        f"[{card}]")
+    if other is not None:
+        oenv = dict(env, PYTHONPATH=os.pathsep.join(
+            [other] + ([os.environ["PYTHONPATH"]]
+                       if os.environ.get("PYTHONPATH") else [])))
+        argv = [*runs["executor"][:-1], out["other"]]
+        dt, p = cli_process(argv, oenv, cwd=other)
+        line = [ln for ln in p.stderr.splitlines()
+                if "executor chain device stats" in ln]
+        o_recs = sam_records(out["other"]) if p.returncode == 0 else {}
+        o_same = sum(o_recs.get(n) == recs["host"].get(n) for n in names)
+        say(f"genome layout, {other}'s executor on the same .vmi: exit "
+            f"{p.returncode} in {dt:.3f} s; records equal to the host path "
+            f"for {o_same}/{len(names)}; "
+            f"{line[-1][line[-1].index('executor chain'):] if line else 'no stats line'} "
+            f"[{card}]")
+    if not across:
+        fail("genome layout: no read has anchors on both sides of 2^31")
+    if aligned != len(names):
+        fail(f"genome layout: only {aligned}/{len(names)} reads aligned")
+    if len(same) / len(names) < E2E_AGREE_MIN or dup_same != dup_names:
+        fail(f"genome layout: records differ from the host path: "
+             f"{[n for n in names if n not in same][:20]}")
+    if not asm_same:
+        fail("genome layout: the asm records differ from the host path's")
+    if any(v for k, v in declines.items() if k.endswith("coords")):
+        fail(f"genome layout: declined for coordinates: {declines}")
+    if ex["global_chained"] != len(names) or not ex["chain_launches"]:
+        fail(f"genome layout: the executor's global chain took "
+             f"{int(ex['global_chained'])} of {len(names)} reads")
+    if asm["stream_engaged"] != round1 or round1 < ASM_BIG // 100_000:
+        fail(f"genome layout: not every round-1 block was chained by the "
+             f"kernel: {asm}")
+    return {"executor": {"chain_dp": int(ex["chain_launches"]), **fills},
+            "asm": {"chain_dp_large": int(asm["warm_launches"]),
+                    "chain_dp": int(asm["chain_launches"])}}
 
 
 def per_call_s(torch, fn, reps):
@@ -944,6 +1148,9 @@ def entry_phase(torch, reset_launches, read_launches):
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == EDIT_CHILD:
         return edit_transport_child(sys.argv[2])
+    layout_only = sys.argv[1:2] == [LAYOUT_ONLY]
+    other = (sys.argv[3] if layout_only and sys.argv[2:3] == ["--other"]
+             else None)
     try:
         import torch
     except ImportError:
@@ -1013,6 +1220,15 @@ def main() -> int:
     read_bases = sum(len(c) for _, c in reads)
     say(f"data: genome {len(gcodes)} bp, {len(reads)} reads, {read_bases} bp "
         f"in {time.perf_counter() - t0:.1f} s")
+
+    if layout_only:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        with tempfile.TemporaryDirectory(prefix="vacmap_layout_") as wd:
+            genome_layout_phase(wd, gcodes, reads, env, card,
+                                other and os.path.abspath(other))
+        return 0
 
     # ---- 4. kernel phases -----------------------------------------------
     rng = np.random.default_rng(SEED + 1)
@@ -1583,12 +1799,9 @@ def main() -> int:
             except (OSError, KeyError, ValueError) as err:
                 fail(f"the {path}'s fill service wrote no stats line: {err!r}")
         path_launches["executor"]["chain_dp"] = chain_launches
-        line = [ln for ln in errs["executor_R"].splitlines()
-                if "executor chain device stats:" in ln]
-        if not line:
+        kv = log_stats(errs["executor_R"], "executor chain device stats")
+        if kv is None:
             fail("the mode R executor printed no chain stats line")
-        kv = dict(x.split("=", 1) for x in
-                  line[-1].split("executor chain device stats:", 1)[1].split())
         path_launches["executor_R"]["chain_dp"] = int(kv["chain_launches"])
         refund_launches = {"executor_R": int(kv["refund_launches"])}
 
@@ -1624,11 +1837,16 @@ def main() -> int:
                      f"{p.stderr[-3000:]}")
             asm_err[name] = p.stderr
         asm_recs = {k: sam_records(v) for k, v in asm_out.items()}
-        astats = asm_stats(asm_err["cuda"])
+        astats = log_stats(asm_err["cuda"], "asm chain device stats")
         if astats is None:
             fail("the asm CLI printed no chain device stats line: "
                  + asm_err["cuda"][-2000:])
         coords_phase(dev, index, cfg0, reads[0], card)
+
+        # ---- 6b. genome layout: chrB past 2^31, chrA a copy of its start
+        path_launches.update(
+            (f"genome_layout_{k}", v) for k, v in
+            genome_layout_phase(wd, gcodes, reads, env, card).items())
 
         # ---- 7. multi-process: two executor processes, one gloo group
         path_launches["multi_process"] = multi_process_phase(

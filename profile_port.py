@@ -257,7 +257,7 @@ def main() -> int:
                     dict(env, PYTHONPATH=root), cwd=root)
                 if p.returncode != 0:
                     cs.fail(f"{side} CLI exited {p.returncode}: {p.stderr[-2000:]}")
-                stats = cs.asm_stats(p.stderr)
+                stats = cs.log_stats(p.stderr, "asm chain device stats")
                 asm_lines.append(
                     f"process {side}: {dt:.3f} s = {cbases / dt / 1e6:.4f} Mbp/s "
                     f"(mapping alone {cs.mapping_seconds(p.stderr):.1f} s; "

@@ -324,8 +324,12 @@ def test_stream_backend_declines(cause):
     elif cause == "size":
         a = np.concatenate([b0, b0[-1:] + [30, 30, 0, 0]])
     else:
+        # past 2^31 and a read span of 2^29: even renumbered, one cut
+        # gap (2 * 2^29 and more) takes the coordinates past 2^30
         a = b0.copy()
         a[:, 1] += 2**31
+        a[-1, 0] = 2**29
+        a[-1, 1] += 2**32
     args = (a, variant, 15, 40.0, 50, 1000, *none)
     assert be(*args) is None and jbe(*args) is None
     assert be.declined[cause] == 1 and sum(be.declined.values()) == 1

@@ -119,9 +119,15 @@ def test_torch_backend_hands_large_coordinates_to_host():
     a = chainy_anchors(rng, read_len=1000, noise=3)
     be = TorchChainBackend("cpu")
     assert be(a, "global", 15, 40.0, 50, 1000) is not None
+    # past 2^31 the read is chained on its renumbered coordinates
+    # (device_coords), with the host DP's result
     a64 = a.copy()
     a64[:, 1] += 2**31
-    assert be(a64, "global", 15, 40.0, 50, 1000) is None
+    got = be(a64, "global", 15, 40.0, 50, 1000)
+    want = chain_dp(a64, 15, 40.0, 50, 1000, "global")
+    assert got is not None
+    np.testing.assert_array_equal(got.P, want.P)
+    np.testing.assert_allclose(got.S, want.S, atol=1e-3, rtol=1e-5)
     # more anchors than the per-call backend takes (the reference's
     # 65,536), and the refund variant above chain_dp.cu's shared-memory
     # limit (its ledger exists only there)

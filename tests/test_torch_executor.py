@@ -13,6 +13,7 @@ import pytest
 
 from vacmap_tpu.config import AlignerConfig
 from vacmap_tpu.index import ReferenceIndex
+from vacmap_tpu.ops.chain_ref import chain_dp
 from vacmap_tpu.pipeline.chaining import chain_read, prepare_read_anchors
 from vacmap_tpu.pipeline.executor import BatchExecutor
 from vacmap_tpu.pipeline.mapper import Mapper
@@ -148,8 +149,10 @@ def test_torch_map_stream_matches_map_batch(world, port_mapper):
 
 
 def test_torch_executor_routes_2_31_anchors_to_host(world, port_mapper):
-    """The reference executor casts anchors to int32 unguarded; the port
-    hands a read whose anchors reach 2^31 to the host DP."""
+    """The reference executor casts anchors to int32 unguarded (wrapped
+    coordinates past 2^31, a defect of the reference left as it is); the
+    port chains a read whose anchors reach 2^31 on the device on its
+    renumbered coordinates (device_coords), with the host DP's result."""
     genome, idx, reads = world
     m = port_mapper()
     ex = TorchBatchExecutor(m, device="cpu")
@@ -159,8 +162,15 @@ def test_torch_executor_routes_2_31_anchors_to_host(world, port_mapper):
     A_big[:, 1] += 2**31
     skip, maxdiff, maxgap = m.config.chain_params_global()
     res = ex._device_chain([A, A_big], "global", skip, maxdiff, maxgap, 15)
-    assert res[0] is not None and res[1] is None
-    # the read then chains on host: the device chain backend declines it
+    assert res[0] is not None and res[1] is not None
+    want = chain_dp(A_big, kmersize=15, skipcost=skip, maxdiff=maxdiff,
+                    maxgap=maxgap, variant="global")
+    np.testing.assert_array_equal(res[1].P, want.P)
+    np.testing.assert_allclose(res[1].S, want.S, atol=1e-3, rtol=1e-5)
+    assert res[1].g_max_index == want.g_max_index
+    assert ex.chained == 2
+    assert ex.declined == {"variant": 0, "size": 0, "coords": 0}
+    # the aggregating backend takes it as well
     gc_port = chain_read(A_big, len(reads[0][1]), kmersize=15, skipcost=skip,
                          maxdiff=maxdiff, maxgap=maxgap,
                          chain_backend=m.chain_backend)
@@ -170,6 +180,8 @@ def test_torch_executor_routes_2_31_anchors_to_host(world, port_mapper):
     assert gc_port.mapq == gc_host.mapq
     for p, q in zip(gc_port.paths, gc_host.paths):
         np.testing.assert_array_equal(p, q)
+    assert m.chain_backend.chained == 1
+    assert m.chain_backend.declined == {"variant": 0, "size": 0, "coords": 0}
 
 
 def test_torch_cli_matches_host_cli(world, tmp_path):

@@ -423,10 +423,17 @@ def _run_executor(args, cfg, mapper, header, read_paths, device,
     finally:
         writer.close()
         ex.close()
+    # the global chains the executor launched or left to the host, and
+    # the jobs of its aggregating backend (local re-chains, and the
+    # global chains of the reads the executor left)
+    counts = " ".join(
+        f"{name}_chained={c.chained} " + " ".join(
+            f"{name}_declined_{why}={n}" for why, n in c.declined.items())
+        for name, c in (("global", ex), ("backend", mapper.chain_backend)))
     log.info("executor chain device stats: chain_launches=%d "
-             "refund_launches=%d", chain_scores_batch.launches,
+             "refund_launches=%d %s", chain_scores_batch.launches,
              sum(k for (v, _, _), k in chain_scores_batch.shapes.items()
-                 if v == "refund"))
+                 if v == "refund"), counts)
     return count
 
 

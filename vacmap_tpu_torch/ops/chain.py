@@ -743,7 +743,9 @@ chain_scores_batch_warm.shapes = {}  # (variant, B, N) -> launches
 def prepare_batch(anchor_list, variant: str, skipcost: float, maxdiff: int):
     """Pad a list of per-read (n,4) anchor arrays (already barrier-sorted)
     into device inputs, computing the adaptive per-anchor penalties on
-    host (cheap O(n) bincounts)."""
+    host (cheap O(n) bincounts).  Each read's anchors go in as
+    ``device_coords`` gives them; a read that cannot fit raises
+    ValueError (callers decline it first)."""
     B = len(anchor_list)
     N = max((len(a) for a in anchor_list), default=1)
     # "global_nocov" (asm): global scoring, flat penalties
@@ -757,7 +759,11 @@ def prepare_batch(anchor_list, variant: str, skipcost: float, maxdiff: int):
     for b, a in enumerate(anchor_list):
         n = len(a)
         n_valid[b] = n
-        anchors[b, :n] = a
+        d = device_coords(a, maxdiff)
+        if d is None:
+            raise ValueError(f"read {b}: anchors beyond the device "
+                             f"coordinates (device_coords)")
+        anchors[b, :n] = d
         if variant == "global" and n:
             rp = a[:, 0].astype(np.int64)
             cov = np.minimum(np.bincount(rp)[rp], 20)
@@ -773,17 +779,78 @@ def to_device(device, *arrays):
                  for a in arrays)
 
 
-def _int32_coords(A: np.ndarray) -> bool:
-    """Every reference coordinate below 2^31 (the device anchors are
-    int32)."""
-    return len(A) == 0 or int(A[:, 1].max()) < 2**31
+# device coordinates: every read position, and every reference
+# coordinate plus Rspan + 2 Lmax, below COORD_LIMIT (see device_coords)
+COORD_LIMIT = 1 << 30
+# the largest gap cost at which a clipped term of the pair score still
+# changes: csrc/chain_pair.cuh::extra_penalty returns 36 from 163,000 on
+# (the host table EXTRA saturates at 162,755, the mismatch log table at
+# 99,999)
+GAP_CLIP = 163_000
 
 
-def device_chainable(A: np.ndarray) -> bool:
-    """True when a batched launch of chain_dp.cu can take one read's
-    (n, 4) anchors: at most MAX_N of them and int32 coordinates.  The
-    host DP takes the others."""
-    return len(A) <= MAX_N and _int32_coords(A)
+def device_coords(A: np.ndarray, maxdiff: int = 0) -> Optional[np.ndarray]:
+    """One problem's (n, 4) anchors (readpos, refpos, strand, len) as the
+    int32 copy the chain kernels take, or None when it cannot fit.
+
+    A problem that fits as given (0 <= r, y; every r < COORD_LIMIT and
+    every y + Rspan + 2 Lmax < COORD_LIMIT, with Rspan = max(r + l) -
+    min(r) and Lmax = max(l)) is only cast.  Any other has its reference
+    column renumbered: the distinct y values in order, every gap between
+    neighbours up to G kept, every larger gap cut to G, the smallest value
+    at 0, with G = 2 Rspan + 2 Lmax + max(GAP_CLIP, maxdiff + 1) + 1
+    (``maxdiff`` bounds every maxdiff_i of the call).  None when the
+    renumbered problem still fails the bound.  Rows keep their order, so
+    P indexes the caller's A; only the device inputs use the copy.
+
+    Why the DP's S and P do not change.  The pair score reads y only
+    through refgap (chain_pair.cuh::pair_terms, chain_ref._pair_geometry).
+    Every form of refgap, the asm forms (asm_geo) included, is s * dy + c
+    with dy = y_i - y_j, s = +-1 and c made of r, l and 1:
+    y_i + overlap - (y_j + l_j) = dy + r_j - r_i;
+    y_j - (y_i + bonus) = -dy - bonus; y_i + overlap - y_j + 1;
+    y_i + bonus - 1 - (y_j + l_j); y_i - y_j - l_j; y_j - y_i - l_i;
+    y_i - y_j + 1; y_i + l_i - 1 - y_j - l_j; y_i + l_j - nov - y_j;
+    y_i + l_i - y_j - nov; y_i - y_j; y_i + l_i - y_j - l_j.  With
+    |r_i - r_j|, |overlap|, |bonus| (its overlap form), |nov| and readgap
+    all at most Rspan, |c| <= Rspan + Lmax + 1 and 0 <= readgap <= Rspan.
+    A pair with no cut gap between its two y keeps dy exactly, so its
+    terms are unchanged.  A pair across a cut gap has |dy| >= G both
+    before and after, so refgap has the sign of s * dy both times, and
+    gapcost = |readgap - refgap| >= G - 2 Rspan - Lmax - 1 >=
+    max(GAP_CLIP, maxdiff + 1) both times.  Past that point every use of
+    gapcost gives one value: not colinear (gapcost > maxdiff_i), so the
+    colinear gap cost is not taken and refgap's sign is not read;
+    extra_penalty (and the host's EXTRA[min(g, 162,755)]) is 36; the
+    mismatch SV cost reads min(g, 99,999).  So every test(i, j), and with
+    it S and P, is the same on the copy.
+
+    Why no kernel intermediate leaves int32.  With 0 <= y, y + Rspan +
+    2 Lmax < 2^30 and 0 <= r < 2^30: y + overlap, y + bonus and y + l
+    stay below 2^30; r + l below 2^30 + 2^29; |dy| < 2^30 - Rspan -
+    2 Lmax, so |refgap| < 2^30; readgap <= Rspan < 2^30, so |readgap -
+    refgap| < 2^31.  The plain versions compute in the same int32."""
+    A = np.asarray(A)
+    if len(A) == 0:
+        return A.astype(np.int32).reshape(0, 4)
+    r = A[:, 0].astype(np.int64)
+    y = A[:, 1].astype(np.int64)
+    ln = A[:, 3].astype(np.int64)
+    if int(r.min()) < 0 or int(r.max()) >= COORD_LIMIT or int(ln.min()) < 0:
+        return None
+    rspan = int((r + ln).max() - r.min())
+    reach = rspan + 2 * int(ln.max())
+    if int(y.min()) >= 0 and int(y.max()) + reach < COORD_LIMIT:
+        return A.astype(np.int32)
+    gap = reach + rspan + max(GAP_CLIP, int(maxdiff) + 1) + 1
+    vals, inv = np.unique(y, return_inverse=True)
+    start = np.zeros(len(vals), np.int64)
+    np.cumsum(np.minimum(np.diff(vals), gap), out=start[1:])
+    if int(start[-1]) + reach >= COORD_LIMIT:
+        return None
+    out = A.astype(np.int32)
+    out[:, 1] = start[inv.reshape(-1)]
+    return out
 
 
 def chain_results(device, anchor_list, variant: str, kmersize: int,
@@ -830,9 +897,10 @@ class TorchChainBackend:
     """chain_read/chain_local-compatible backend: per-call batch of one
     (the batched executor batches through chain_results itself).  Above
     MAX_N anchors the call takes the tiled kernel.  Returns None, so the
-    host DP takes over, for more than ``max_anchors`` anchors, for a
-    reference coordinate of 2^31 or more, and for the refund variant
-    above MAX_N (its ledger exists only in chain_dp.cu)."""
+    host DP takes over, for more than ``max_anchors`` anchors, for anchors
+    that do not fit the device coordinates (``device_coords``), and for
+    the refund variant above MAX_N (its ledger exists only in
+    chain_dp.cu)."""
 
     def __init__(self, device, max_anchors: int = MAX_ANCHORS):
         self.device = torch.device(device)
@@ -840,11 +908,14 @@ class TorchChainBackend:
 
     def __call__(self, A: np.ndarray, variant: str, kmersize: int,
                  skipcost: float, maxdiff: int, maxgap: int):
-        if len(A) > self.max_anchors or not _int32_coords(A):
+        if len(A) > self.max_anchors:
             return None
         if variant == "refund" and len(A) > MAX_N:
             return None
-        return chain_results(self.device, [A], variant, kmersize, skipcost,
+        D = device_coords(A, maxdiff)
+        if D is None:
+            return None
+        return chain_results(self.device, [D], variant, kmersize, skipcost,
                              maxdiff, maxgap)[0]
 
 
@@ -894,8 +965,9 @@ class TorchStreamChainBackend:
     are the anchors (frontier included) of the chained blocks in all and
     of the largest one, and ``declined`` the blocks left to the native
     DP by cause: "variant" (scar, asm_fine: no device kernel), "size"
-    (empty or over ``max_anchors``) and "coords" (a reference coordinate
-    of 2^31 or more).  A failed device call raises DeviceKernelError."""
+    (empty or over ``max_anchors``) and "coords" (frontier and block
+    together do not fit the device coordinates, ``device_coords``).  A
+    failed device call raises DeviceKernelError."""
 
     def __init__(self, device, max_anchors: int = MAX_STREAM_ANCHORS):
         self.device = torch.device(device)
@@ -940,8 +1012,12 @@ class TorchStreamChainBackend:
         self.calls += 1
         n = len(linked)
         why = ("size" if n == 0 or n > self.max_anchors
-               else "variant" if variant in ("scar", "asm_fine")
-               else None if _int32_coords(linked) else "coords")
+               else "variant" if variant in ("scar", "asm_fine") else None)
+        if why is None:
+            # the frontier rows and the block's are one problem
+            linked = device_coords(linked, maxdiff)
+            if linked is None:
+                why = "coords"
         if why is not None:
             self.declined[why] += 1
             return None
@@ -950,7 +1026,7 @@ class TorchStreamChainBackend:
             self._setup(variant)
         t1 = time.perf_counter()
         anchors, n_valid, skip_i, maxdiff_i = prepare_batch(
-            [linked.astype(np.int64)], variant, skipcost, maxdiff)
+            [linked], variant, skipcost, maxdiff)
         N = anchors.shape[1]
         n_in, words = _warm_words(1, N)
         with device_call(f"{variant} warm chain staging"):

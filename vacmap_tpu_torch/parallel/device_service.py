@@ -19,7 +19,7 @@ from typing import List
 import torch
 
 from ..device import DeviceKernelError
-from ..ops.chain import chain_results, device_chainable
+from ..ops.chain import MAX_N, chain_results, device_coords
 from .mesh import cached_chain_step
 
 # a dispatcher stops waiting for peers once this many jobs queue up
@@ -32,9 +32,11 @@ class TorchAggregatingChainBackend:
     chain_scores_batch launch per parameter group.
 
     Call shape: backend(A, variant, kmersize, skipcost, maxdiff, maxgap)
-    -> ChainResult | None (None = the caller takes the host DP:
-    host-only variant, >2^31 coordinates or oversized job).  Jobs group
-    by the full parameter tuple.  A failed device call raises
+    -> ChainResult | None (None = the caller takes the host DP), the
+    declines counted in ``declined`` by cause: "variant" (host-only),
+    "size" (empty or over MAX_N anchors), "coords" (anchors that do not
+    fit ``device_coords``); ``chained`` counts the jobs the device took.
+    Jobs group by the full parameter tuple.  A failed device call raises
     DeviceKernelError in every waiting caller.  ``devices``: a device
     list; each group's launch then runs split over it, one cached step a
     parameter set."""
@@ -47,14 +49,22 @@ class TorchAggregatingChainBackend:
         self._lock = threading.Lock()
         self._queue: List[dict] = []
         self._dispatching = False
+        self.chained = 0
+        self.declined = {"variant": 0, "size": 0, "coords": 0}
 
     def __call__(self, A, variant, kmersize, skipcost, maxdiff, maxgap):
-        if variant in ("scar", "asm_fine"):
-            return None  # host-only variants (R/asm local routines)
-        if len(A) == 0 or not device_chainable(A):
+        # scar, asm_fine: host-only variants (R/asm local routines)
+        why = ("variant" if variant in ("scar", "asm_fine")
+               else "size" if len(A) == 0 or len(A) > MAX_N else None)
+        D = None if why else device_coords(A, maxdiff)
+        if why is None and D is None:
+            why = "coords"
+        if why is not None:
+            with self._lock:
+                self.declined[why] += 1
             return None
         req = {
-            "A": A, "key": (variant, kmersize, float(skipcost),
+            "A": D, "key": (variant, kmersize, float(skipcost),
                             int(maxdiff), int(maxgap)),
             "event": threading.Event(), "result": None, "error": None,
         }
@@ -100,6 +110,8 @@ class TorchAggregatingChainBackend:
                                            maxgap))
                 for r, cr in zip(reqs, res):
                     r["result"] = cr
+                with self._lock:
+                    self.chained += len(reqs)
         except Exception as err:
             for r in batch:
                 if r["result"] is None:

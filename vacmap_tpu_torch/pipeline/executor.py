@@ -14,9 +14,10 @@ it (``parallel/mesh.ShardedChainStep``, one step a parameter set); the
 fill service stays on ``device``.
 
 Identical results to ``Mapper.map_read``.  Repeat-dense reads (anchors/bp
-> 5), reads over the largest bucket and reads whose anchors reach 2^31
-take the host DP.  Host errors drop the read, as in the reference; a
-device error (DeviceKernelError) stops the run.
+> 5), reads over the largest bucket and reads whose anchors do not fit
+the device coordinates even renumbered (``ops.chain.device_coords``)
+take the host DP, counted in ``declined``.  Host errors drop the read, as
+in the reference; a device error (DeviceKernelError) stops the run.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceKernelError
-from ..ops.chain import TorchChainBackend, chain_results, device_chainable
+from ..ops.chain import TorchChainBackend, chain_results, device_coords
 from ..ops.chain_ref import ChainResult
 from ..parallel.device_service import TorchAggregatingChainBackend
 from ..parallel.fill_service import async_fill_aligner
@@ -56,6 +57,10 @@ class TorchBatchExecutor:
             devices = make_mesh()
         self.devices = None if devices is None else list(devices)
         self._sharded_steps = {}
+        # reads whose global chain the device DP took, and those it left
+        # to the host DP by cause (no global variant is host-only)
+        self.chained = 0
+        self.declined = {"variant": 0, "size": 0, "coords": 0}
         # the finish threads' local DPs merge into shared launches: the
         # aggregating backend takes the place of the Mapper's per-call one
         if device_local_dp and (
@@ -84,28 +89,33 @@ class TorchBatchExecutor:
                       kmersize: int) -> List[Optional[ChainResult]]:
         """Global chain DP of many reads, one launch per anchor-count
         bucket and chunk; None for a read the kernel cannot take (the
-        host DP takes it)."""
+        host DP takes it), counted by cause.  The launches take each
+        read's ``device_coords``; the results index its own rows."""
         out: List[Optional[ChainResult]] = [None] * len(arrays)
         groups = {}
         for i, a in enumerate(arrays):
-            if not device_chainable(a):
+            if len(a) > N_BUCKETS[-1]:
+                self.declined["size"] += 1
                 continue
-            for b in N_BUCKETS:
-                if len(a) <= b:
-                    groups.setdefault(b, []).append(i)
-                    break
-        for bucket, idxs in groups.items():
-            for cs in range(0, len(idxs), self.max_device_batch):
-                chunk = idxs[cs : cs + self.max_device_batch]
+            d = device_coords(a, maxdiff)
+            if d is None:
+                self.declined["coords"] += 1
+                continue
+            bucket = next(b for b in N_BUCKETS if len(a) <= b)
+            groups.setdefault(bucket, []).append((i, d))
+        for bucket, jobs in groups.items():
+            for cs in range(0, len(jobs), self.max_device_batch):
+                chunk = jobs[cs : cs + self.max_device_batch]
                 # N padded to the bucket so shapes stay canonical
                 res = chain_results(
-                    self.device, [arrays[i] for i in chunk], variant,
+                    self.device, [d for _, d in chunk], variant,
                     kmersize, skipcost, maxdiff, maxgap, pad_N=bucket,
                     step=cached_chain_step(
                         self._sharded_steps, self.devices, variant, kmersize,
                         skipcost, maxdiff, maxgap))
-                for i, r in zip(chunk, res):
+                for (i, _), r in zip(chunk, res):
                     out[i] = r
+                self.chained += len(chunk)
         return out
 
     # ------------------------------------------------------------------
@@ -139,6 +149,9 @@ class TorchBatchExecutor:
         dev_idx = [
             i for i, pr in enumerate(prepped) if pr is not None and not pr[4]
         ]
+        # repeat-dense reads: too many anchors for the exact DP
+        self.declined["size"] += sum(
+            pr is not None and pr[4] for pr in prepped)
         dev_results = self._device_chain(
             [prepped[i][3] for i in dev_idx], variant, skip_g, maxdiff_g,
             maxgap_g, kmersize,
