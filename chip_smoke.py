@@ -46,7 +46,19 @@ the final line):
      error, length ratios to 1.4, some with an N), then at the divergence
      filter's launch size (B = 3, texts near T) at each bucket, against
      its plain version on the card and, on the pairs without N, against
-     the native Myers, all exactly equal; then 1,780 edit jobs through
+     the native Myers, all exactly equal; the banded affine DP
+     (csrc/affine_band.cu) against its plain version, all six outputs
+     equal and the plane byte for byte, in the global mode at B = 64 T =
+     512 W = 128 and T = 4096 W = 256 and the mapping step's B = 16 T =
+     128 W = 32, and in the extension mode (the edge extension's scores,
+     z-drop 50) at B = 64 T = 8192 and 32,768 W = 512, on genome pairs
+     with ragged lengths, |q - t| >= W and queries that turn unrelated
+     (the pair drops); then ops.affine_batch.BatchAligner on the card in
+     both modes on 226 and 184 fill_pairs of up to 4,600 and 8,192 bases
+     (global pairs the band or the buckets cannot hold go to the host
+     align2p, as in the reference) against the same groups through the
+     plain version: equal results, and every global CIGAR's walked score
+     equal to the host align2p's; then 1,780 edit jobs through
      the service's edit kind on both transports (in this process, and a
      service process of its own behind a FillClient): every routed
      distance equal to the native one, exactly the oversized,
@@ -127,7 +139,9 @@ the final line):
      B = 16 shapes (N = 2048): S and P bit-equal to one unsplit launch,
      the accepted count equal; entry.dryrun_multichip on every visible
      card; ShardedMappingStep over [cuda:0, cuda:0] against [cuda:0] with
-     byte-equal outputs; each step's wall time per call (copies, launches,
+     byte-equal outputs (the chains and the banded affine DP at W = 32,
+     its best also equal to the plain version's; chain_dp and affine_band
+     must launch); each step's wall time per call (copies, launches,
      read-back) beside the unsplit call's.
   10. entry: vacmap_tpu_torch.entry.entry()'s fn(*args) on the card against
      the plain version on the CPU (S within 1e-3, P agreement >= 0.999).
@@ -146,11 +160,14 @@ too) and the bytes (each input read once, each output written once) over
 3.35 TB/s.  A chain DP's operations are its candidate pairs (j < n_valid
 with an earlier barrier than i, counted from the inputs) at 80 operations
 a pair; a fill's are its cells (t_len x q_len, or t_len x 128 band lanes)
-at 30 operations a cell; an edit distance's are its text columns times
-its pattern's 64-bit words at 29 64-bit integer operations a word and
-column (OPS_PER_WORD_STEP: the recurrence's own count, the same whatever
-kernel computes it).  No single PyTorch call computes the chain DP, the
-affine fill with its traceback or an edit distance, so "library" is
+at 30 operations a cell; the banded affine DP's are its band cells (T x
+W in the global mode; in the extension mode rows up to t_len, or for a
+pair that drops up to its best row, a lower bound) at the reference
+step's own count, OPS_PER_BAND_CELL; an edit distance's are its text
+columns times its pattern's 64-bit words at 29 64-bit integer operations
+a word and column (OPS_PER_WORD_STEP: the recurrence's own count, the
+same whatever kernel computes it).  No single PyTorch call computes the chain DP, the
+affine fills with their tracebacks or an edit distance, so "library" is
 null.  The line
 before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when no
@@ -190,6 +207,16 @@ PEAK_OPS = 67e12      # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM, HBM3
 OPS_PER_PAIR = 80     # one pair score of the chain DP (csrc/chain_pair.cuh)
 OPS_PER_CELL = 30     # one cell of the two-piece affine fill
+# one band cell of ops/affine_jax.py's step (:85-156), counted as written:
+# column and masks 7, clipped query read 4, substitution 2, diagonal 1,
+# E1 and E2 4 each, H0 with column 0 4, okc 1, F1 and F2 7 each (select,
+# two products, add, cummax, two subtracts), H 5, argmax's select and
+# compare 2 (48); in the global mode also the op (5 compares, 5 selects)
+# and the four flag bits (4 each): 74
+OPS_PER_BAND_CELL = {True: 74, False: 48}
+# the edge extension's scores and z-drop (vacmap_tpu_torch/pipeline/
+# extend.py::_EXT_KW), for the extension mode
+EXT_KW = dict(match=2, mismatch=-4, o1=4, e1=4, o2=4, e2=4, zdrop=50)
 # one 64-bit pattern word of Myers' recurrence in one text column: Eq
 # and X, the add with its carry in and out (8), Xh, Ph, Mh and the score
 # bit (11), the two shifts with their bits in, Xv, Pv, Mv (10)
@@ -381,6 +408,45 @@ def fill_pairs(rng, gcodes, n, lo, hi, err=0.05, big_indel=0.0,
             continue
         pairs.append((t.astype(np.uint8), q.astype(np.uint8)))
     return pairs
+
+
+def band_pairs(rng, gcodes, B, T, W, ext):
+    """B pairs for one affine_band launch of T rows: a genome span of T / 2
+    to T bases and its ONT-like copy; pair 3 of 7 bases (ragged lengths);
+    every fourth query cut W to W + 20 bases shorter than its target
+    (|q - t| >= W, beyond the band); ``ext``: every other query unrelated
+    from a random point on, so that the extension drops there."""
+    pairs = []
+    for b in range(B):
+        L = 7 if b == 3 else int(rng.integers(T // 2, T + 1))
+        st = int(rng.integers(0, len(gcodes) - L))
+        t = gcodes[st : st + L].copy()
+        q = mutate_codes(rng, t, ERR)[:T]
+        if b % 4 == 1:
+            q = q[: max(1, L - W - int(rng.integers(0, 21)))]
+        if ext and b % 2 == 0:
+            p = int(rng.integers(len(q) // 4, 3 * len(q) // 4 + 1))
+            q = np.concatenate([q[:p], rng.integers(0, 4, len(q) - p,
+                                                    dtype=np.uint8)])
+        pairs.append((t, q))
+    return pairs
+
+
+def cigar_score(cigar, t, q):
+    """The two-piece affine score of a global CIGAR (default scores), or
+    None when it does not consume t and q whole."""
+    import re
+
+    ti = qi = score = 0
+    for m in re.finditer(r"(\d+)([MID=X])", cigar):
+        n, op = int(m.group(1)), m.group(2)
+        if op in "M=X":
+            score += int(np.where(t[ti : ti + n] == q[qi : qi + n], 2, -4).sum())
+            ti, qi = ti + n, qi + n
+        else:
+            score -= min(4 + 2 * n, 24 + n)
+            ti, qi = (ti + n, qi) if op == "D" else (ti, qi + n)
+    return score if (ti, qi) == (len(t), len(q)) else None
 
 
 def myers_pairs(rng, gcodes, T, limit, B):
@@ -1080,13 +1146,15 @@ def mesh_phase(torch, dev, gcodes, cfg0, card, reset_launches,
     say(f"mesh dryrun_multichip({n_cards}): ok in "
         f"{time.perf_counter() - t0:.3f} s [{card}]")
 
-    # the mapping step: both chains and the full-width fill, split in two
-    # against one part
+    # the mapping step: both chains and the banded affine DP (W = 32,
+    # T = 128), split in two against one part; its best against the plain
+    # version's
+    from vacmap_tpu_torch.ops import affine_batch as ab
+
     g, l = inputs["global"], inputs["fine"]
     B = 16
-    pairs = fill_pairs(rng, gcodes, B, 128, 512, big_indel=0.3,
-                       random_frac=0.05)
-    tT, tQ, lens = padded(pairs, 512)
+    T, W = mesh.ShardedMappingStep.fill_len, mesh.ShardedMappingStep.fill_band
+    tT, tQ, lens = padded(band_pairs(rng, gcodes, B, T, W, False), T)
     args = (*(a[:B] for a in g), *l, tT, tQ, lens[:, 0].copy(),
             lens[:, 1].copy())
     outs, secs = {}, {}
@@ -1101,14 +1169,22 @@ def mesh_phase(torch, dev, gcodes, cfg0, card, reset_launches,
     same = all(np.array_equal(np.asarray(x).view(np.uint8),
                               np.asarray(y).view(np.uint8))
                for x, y in zip(a[:5], b[:5])) and a[5] == b[5]
-    say(f"mesh ShardedMappingStep B={B} (global and fine N=2048, fill "
-        f"N=512): outputs byte-equal split in two and unsplit: {same}; "
+    want = ab.affine_batch_ref(
+        *(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+          for x in (tT, tQ, lens[:, 0], lens[:, 1])), W=W)[1].cpu().numpy()
+    best_ok = a[4].dtype == np.float32 and np.array_equal(a[4], want)
+    say(f"mesh ShardedMappingStep B={B} (global and fine N=2048, banded "
+        f"affine T={T} W={W}, {int((np.abs(lens[:, 1] - lens[:, 0]) >= W).sum())}"
+        f" pairs with |q - t| >= {W}): outputs byte-equal split in two and "
+        f"unsplit: {same}; best equal to the plain version's: {best_ok}; "
         f"mapped {a[5]}; wall per call "
         + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in secs.items())
         + f" [{card}]")
     if not same:
         fail("mesh: ShardedMappingStep split in two differs from one part")
-    for k in ("chain_dp", "fill_full"):
+    if not best_ok:
+        fail("mesh: ShardedMappingStep's best differs from affine_batch_ref's")
+    for k in ("chain_dp", "affine_band"):
         if steps_launches.get(k, 0) <= 0:
             fail(f"mesh: {k} never launched: {steps_launches}")
     return steps_launches
@@ -1159,8 +1235,10 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: no CUDA card")
     try:
         from vacmap_tpu_torch import _build, cli, native
+        from vacmap_tpu_torch.ops import affine_batch as ab
         from vacmap_tpu_torch.ops import affine_fill as af
         from vacmap_tpu_torch.ops import chain, myers
+        from vacmap_tpu_torch.ops.affine_ref import align2p
         from vacmap_tpu_torch.parallel import fill_service
     except ImportError as err:
         fail(f"vacmap_tpu_torch is not importable beside this script: {err}")
@@ -1169,7 +1247,8 @@ def main() -> int:
                "fill_full": af.fill_rowruns,
                "fill_banded": af.fill_rowruns_banded,
                "fill_scan": af.fill_traceback,
-               "myers": myers.myers_distances}
+               "myers": myers.myers_distances,
+               "affine_band": ab.affine_batch}
 
     def reset_launches():
         for w in kernels.values():
@@ -1598,6 +1677,130 @@ def main() -> int:
     except Exception as err:  # noqa: BLE001
         fail(f"myers phase raised: {err!r}")
 
+    def affine_phase(B, T, W, glob, reps, rng):
+        """csrc/affine_band.cu against affine_batch_ref on the card, on
+        band_pairs: all six outputs equal, the plane byte for byte."""
+        kw = (dict(W=W, glob=True, zdrop=-1) if glob
+              else dict(EXT_KW, W=W, glob=False))
+        pairs = band_pairs(rng, gcodes, B, T, W, not glob)
+        tT, tQ, lens = padded(pairs, T)
+        x = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in (tT, tQ, lens[:, 0], lens[:, 1])]
+        launch = lambda: ab.affine_batch(*x, **kw)  # noqa: E731
+        launch()  # warm-up
+        wrap_ms, got = wall_ms(torch, launch, reps)
+        ms = device_ms(torch, launch, reps)
+        plain_ms, want = wall_ms(torch, lambda: ab.affine_batch_ref(*x, **kw),
+                                 1)
+        names = ("tb", "best", "best_i", "best_j", "dead", "dlo")
+        differ = [n for n, g, w in zip(names, got, want)
+                  if g.dtype != w.dtype or g.shape != w.shape
+                  or not torch.equal(g, w)]
+        dead = want[4].cpu().numpy()
+        far = int((np.abs(lens[:, 1] - lens[:, 0]) >= W).sum())
+        # rows these inputs need: every row of the plane in the global
+        # mode; up to t_len, or for a dropped pair past its best row (the
+        # drop comes later), in the extension mode
+        rows = (np.full(B, T) if glob else np.where(
+            dead, want[2].cpu().numpy() + 1, np.minimum(lens[:, 0], T)))
+        cells = int(rows.sum()) * W
+        b_ms, b_by = bound(cells * OPS_PER_BAND_CELL[glob],
+                           nbytes(*x, *(g for g in got if g.dim())))
+        mode = "global" if glob else f"extension zdrop {EXT_KW['zdrop']}"
+        verdict = ("all six outputs equal (plane byte for byte)"
+                   if not differ else f"DIFFER in {differ}")
+        say(f"kernel affine_band {mode} B={B} T={T} W={W}: {verdict}; "
+            f"{int(dead.sum())} pairs dropped, {far} with |q - t| >= W, "
+            f"t_len {int(lens[:, 0].min())}..{int(lens[:, 0].max())}; kernel "
+            f"{ms:.4f} ms (wrapper {wrap_ms:.4f} ms) plain {plain_ms:.1f} ms "
+            f"bound {b_ms:.5f} ms ({b_by}, {cells} cells at "
+            f"{OPS_PER_BAND_CELL[glob]} operations) [{card}]")
+        if differ:
+            fail(f"affine_band B={B} T={T} W={W} glob={glob} differs from "
+                 f"its plain version in {differ}")
+        return 0, ms, wrap_ms, plain_ms, b_ms, b_by
+
+    class PlainBatchAligner(ab.BatchAligner):
+        # the same groups through the plain version on the card's tensors
+        _affine = staticmethod(ab.affine_batch_ref)
+
+    def batch_aligner_phase(glob, pairs):
+        """ab.BatchAligner on the card against the same groups through the
+        plain version: equal results (CIGARs, endpoints, scores, drops);
+        every global CIGAR's walked score equal to the host align2p's.
+        Returns the kernel's launches on the card's run."""
+        kw = (dict(glob=True) if glob
+              else {**EXT_KW, "glob": False})
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            got = ab.BatchAligner(**kw, device=dev).align_batch(pairs, eqx=glob)
+            torch.cuda.synchronize()
+        except Exception as err:  # noqa: BLE001
+            fail(f"BatchAligner glob={glob} raised: {err!r}")
+        dt = time.perf_counter() - t0
+        launches = read_launches()["affine_band"]
+        want = PlainBatchAligner(**kw, device=dev).align_batch(pairs, eqx=glob)
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        # the pairs the aligner sends to the host align2p
+        ba = ab.BatchAligner(**kw, device=dev)
+        bucket = [(ba._bucket(len(t)), ba._bucket(len(q))) for t, q in pairs]
+        routed = sum(1 for (t, q), (bt, bq) in zip(pairs, bucket)
+                     if min(bt, bq) < 0 or abs(len(q) - len(t)) + 64
+                     > ba._band_for(max(bt, bq)))
+        extra = ""
+        if glob:
+            off = [i for i, ((t, q), r) in enumerate(zip(pairs, got))
+                   if cigar_score(r.cigar, t, q) != align2p(
+                       t, q, bw=-1, zdrop=-1).score]
+            extra = (f"; walked CIGAR scores equal to the host align2p's for "
+                     f"{len(pairs) - len(off)}/{len(pairs)}")
+            bad += off
+        else:
+            extra = f"; {sum(r.zdropped for r in got)} dropped"
+        say(f"BatchAligner {'global' if glob else 'extension'} on the card: "
+            f"{len(pairs)} pairs ({len(pairs) - routed} in the buckets, "
+            f"{routed} to the host align2p); results equal to the same groups "
+            f"through the plain version for {len(pairs) - len(bad)}/"
+            f"{len(pairs)}{extra}; {launches} affine_band launches in "
+            f"{dt:.3f} s [{card}]")
+        if bad:
+            fail(f"BatchAligner glob={glob}: pairs {sorted(set(bad))[:20]} "
+                 f"differ: {[(got[i], want[i]) for i in sorted(set(bad))[:3]]}")
+        if launches <= 0:
+            fail(f"BatchAligner glob={glob}: affine_band never launched")
+        return {"affine_band": launches}
+
+    try:
+        # a generator of its own, so that every later phase keeps its inputs
+        rng_band = np.random.default_rng(SEED + 12)
+        res = [affine_phase(64, 512, 128, True, 10, rng_band),
+               affine_phase(64, 4096, 256, True, 5, rng_band),
+               affine_phase(64, 8192, 512, False, 5, rng_band),
+               affine_phase(64, 32768, 512, False, 3, rng_band),
+               affine_phase(16, 128, 32, True, 10, rng_band)]
+        summary["affine_band"] = summarize(res)
+        glob_pairs = (fill_pairs(rng_band, gcodes, 160, 30, 512, big_indel=0.1)
+                      + fill_pairs(rng_band, gcodes, 48, 513, 2048,
+                                   big_indel=0.1)
+                      + fill_pairs(rng_band, gcodes, 16, 2049, 4096)
+                      + fill_pairs(rng_band, gcodes, 2, 4200, 4600))
+        ext_pairs = [(t, q) if k % 2 else (t, np.concatenate([q[: len(q) // 2],
+                     rng_band.integers(0, 4, len(q) - len(q) // 2,
+                                       dtype=np.uint8)]))
+                     for k, (t, q) in enumerate(
+                         fill_pairs(rng_band, gcodes, 120, 100, 512)
+                         + fill_pairs(rng_band, gcodes, 48, 513, 2048,
+                                      big_indel=0.1)
+                         + fill_pairs(rng_band, gcodes, 16, 2049, 8192))]
+        path_launches = {
+            "batch_aligner_global": batch_aligner_phase(True, glob_pairs),
+            "batch_aligner_extension": batch_aligner_phase(False, ext_pairs)}
+    except SystemExit:
+        raise
+    except Exception as err:  # noqa: BLE001
+        fail(f"affine_band phase raised: {err!r}")
+
     # realistic jobs through the aligner and the service vs the host aligner
     pairs = (fill_pairs(rng, gcodes, 1800, 10, 500, big_indel=0.05, n_frac=0.03)
              + fill_pairs(rng, gcodes, 150, 300, 700)
@@ -1623,7 +1826,6 @@ def main() -> int:
 
     held_to_host("aligner", lambda: af.TorchFillAligner(device=dev)
                  .align_batch(pairs, eqx=True))
-    path_launches = {}
     for route, scan in (("service_default", False), ("service_scan", True)):
         if scan:
             os.environ["VACMAP_TPU_FILL_SCAN"] = "1"
@@ -2011,6 +2213,8 @@ def main() -> int:
                       "vacmap_tpu/ops/affine_pallas.py:291"),
         "myers": ("vacmap_tpu_torch/csrc/myers.cu",
                   "examples/myers_pallas_device.py:151"),
+        "affine_band": ("vacmap_tpu_torch/csrc/affine_band.cu",
+                        "vacmap_tpu/ops/affine_jax.py:51"),
     }
     lines = []
     for k, (src, rep) in replaces.items():

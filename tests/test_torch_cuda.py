@@ -842,3 +842,106 @@ def test_dryrun_multichip_on_one_card(dev):
     from vacmap_tpu_torch.entry import dryrun_multichip
 
     dryrun_multichip(1)
+
+
+def _band_batch(rng, B, T, W, tail):
+    """B ragged pairs padded to T: mutated copies, every third query
+    unrelated, every fourth |q - t| >= W, every other with ``tail``
+    unrelated bases after the copy (a z-drop)."""
+    tg = np.full((B, T), 4, np.uint8)
+    qr = np.full((B, T), 4, np.uint8)
+    tl = np.zeros(B, np.int32)
+    ql = np.zeros(B, np.int32)
+    for b in range(B):
+        L = int(rng.integers(T // 3, T - tail + 1))
+        t = rng.integers(0, 4, L).astype(np.uint8)
+        q = t.copy()
+        m = rng.random(L) < 0.06
+        q[m] = rng.integers(0, 4, int(m.sum()))
+        if b % 3 == 2:
+            q = rng.integers(0, 4, int(rng.integers(T // 4, T))).astype(np.uint8)
+        if b % 4 == 1:
+            q = q[: max(1, L - W - int(rng.integers(0, 21)))]
+        if tail and b % 2 == 0:
+            t = np.concatenate([t, rng.integers(0, 4, tail).astype(np.uint8)])
+            q = np.concatenate([q, rng.integers(0, 4, tail).astype(np.uint8)])
+        t, q = t[:T], q[:T]
+        tg[b, : len(t)], qr[b, : len(q)] = t, q
+        tl[b], ql[b] = len(t), len(q)
+    return tg, qr, tl, ql
+
+
+@pytest.mark.parametrize("W", [32, 128, 256, 512])
+@pytest.mark.parametrize("glob", [True, False])
+def test_affine_band_kernel_matches_plain(dev, W, glob):
+    """csrc/affine_band.cu against affine_batch_ref on the card: every
+    output equal, the plane byte for byte, in one launch."""
+    from vacmap_tpu_torch.ops.affine_batch import affine_batch, affine_batch_ref
+
+    T = 4 * W if glob else 8 * W
+    x = [torch.from_numpy(a).to(dev) for a in _band_batch(
+        np.random.default_rng(W + glob), 12, T, W, 0 if glob else W)]
+    kw = dict(W=W, glob=glob, zdrop=-1 if glob else 60)
+    before = affine_batch.launches
+    got = affine_batch(*x, **kw)
+    torch.cuda.synchronize()
+    assert affine_batch.launches == before + 1
+    want = affine_batch_ref(*x, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+    if not glob:
+        assert bool(want[4].any()) and not bool(want[4].all())
+
+
+def test_affine_band_kernel_takes_no_plain_route_and_checks_inputs(
+        dev, monkeypatch):
+    """A CUDA tensor launches the kernel even with the plain version made
+    to fail; a bad dtype, shape, band or device raises DeviceKernelError."""
+    from vacmap_tpu_torch.device import DeviceKernelError
+    from vacmap_tpu_torch.ops import affine_batch as ab
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(ab, "affine_batch_ref", no_plain)
+    tg, qr, tl, ql = (torch.from_numpy(a).to(dev) for a in _band_batch(
+        np.random.default_rng(3), 4, 128, 32, 0))
+    before = ab.affine_batch.launches
+    ab.affine_batch(tg, qr, tl, ql, W=32)
+    torch.cuda.synchronize()
+    assert ab.affine_batch.launches == before + 1
+    for bad in (dict(t_len=tl.long()), dict(queries=qr[:, :0]),
+                dict(targets=tg.float()), dict(q_len=ql[:2]),
+                dict(W=64), dict(queries=qr.cpu())):
+        args = dict(targets=tg, queries=qr, t_len=tl, q_len=ql, W=32)
+        args.update(bad)
+        W = args.pop("W")
+        with pytest.raises(DeviceKernelError):
+            ab.affine_batch(*args.values(), W=W)
+    assert ab.affine_batch.launches == before + 1
+
+
+@pytest.mark.parametrize("glob", [True, False])
+def test_batch_aligner_on_card_matches_plain_groups(dev, glob):
+    """BatchAligner on the card against the same groups through the plain
+    version on the card: equal results; the global CIGARs walk to the
+    host align2p score."""
+    from chip_smoke import cigar_score
+    from vacmap_tpu_torch.ops.affine_batch import BatchAligner, affine_batch_ref
+    from vacmap_tpu_torch.ops.affine_ref import align2p
+
+    class Plain(BatchAligner):
+        _affine = staticmethod(affine_batch_ref)
+
+    rng = np.random.default_rng(40 + glob)
+    pairs = _pairs(rng, 40, 50, 1500, random_frac=0.0)
+    kw = dict(glob=glob) if glob else dict(glob=False, zdrop=50)
+    got = BatchAligner(**kw, device=dev).align_batch(pairs, eqx=glob)
+    want = Plain(**kw, device=dev).align_batch(pairs, eqx=glob)
+    assert got == want
+    if glob:  # the walked score; result.score is the best cell
+        for (t, q), r in zip(pairs[:10], got):
+            assert cigar_score(r.cigar, t, q) == align2p(
+                t, q, bw=-1, zdrop=-1).score
+

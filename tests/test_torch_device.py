@@ -176,6 +176,7 @@ def test_build_raises_without_nvcc():
     "ops.chain:TorchStreamChainBackend",
     "ops.myers:TorchMyersAligner",
     "ops.affine_fill:TorchFillAligner",
+    "ops.affine_batch:BatchAligner",
 ])
 def test_constructors_have_no_default_device(path):
     """A caller that forgets the device must hear of it: no constructor of

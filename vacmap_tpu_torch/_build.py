@@ -81,6 +81,7 @@ _SIGNATURES = {
     "fill_scan_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P],
     "myers_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "affine_band_launch": [_P] * 10 + [_I] * 12 + [_P],
 }
 
 

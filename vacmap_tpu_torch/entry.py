@@ -5,9 +5,9 @@
 kernel (csrc/chain_dp.cu on a card, its plain version on the CPU) with
 the reference's arguments, and an example batch on ``device``.
 
-``dryrun_multichip(n_devices, device)``: the whole device step of the read
-path split over ``make_mesh(n_devices, device)``, then one real read batch
-through ``TorchBatchExecutor`` over the same devices.
+``dryrun_multichip(n_devices, device)``: the whole device step of the
+reference's mapping step split over ``make_mesh(n_devices, device)``, then
+one real read batch through ``TorchBatchExecutor`` over the same devices.
 
     python -m vacmap_tpu_torch.entry      # both, on every visible card
 """
@@ -51,13 +51,13 @@ def entry(device="cuda"):
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """Every device kernel of the read path (global chain, local
-    re-chain, full-width fill) split over ``n_devices`` devices in one
-    step, the R-mode refund chain over the same devices, then one batch of
-    real reads through the production executor with both chain DPs split
-    over them.  ``device="cuda"`` raises DeviceKernelError when fewer
-    cards are visible; ``"cpu"`` runs the plain versions on n CPU
-    entries."""
+    """Every device kernel of the reference's mapping step (global chain,
+    local re-chain, banded global affine DP) split over ``n_devices``
+    devices in one step, the R-mode refund chain over the same devices,
+    then one batch of real reads through the production executor with
+    both chain DPs split over them.  ``device="cuda"`` raises
+    DeviceKernelError when fewer cards are visible; ``"cpu"`` runs the
+    plain versions on n CPU entries."""
     from .config import AlignerConfig
     from .index import ReferenceIndex
     from .ops.chain import prepare_batch
@@ -83,7 +83,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         l_list, "fine", 30.0, 30
     )
     # fill pairs: mutated copies
-    T = 128
+    T = ShardedMappingStep.fill_len
     tg = rng.integers(0, 4, (B, T)).astype(np.uint8)
     qr = tg.copy()
     mut = rng.random((B, T)) < 0.05
@@ -96,7 +96,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         anchors, n_valid, skip_i, maxdiff_i,
         l_anchors, l_valid, l_skip, l_maxdiff, tg, qr, t_len, q_len,
     )
-    assert out[0].shape[0] == B and out[4].shape == (B, 2 * T)
+    assert out[0].shape[0] == B
+    assert out[4].shape == (B,) and out[4].dtype == np.float32
     assert out[5] >= 0
 
     # R-mode refund ledger path over the same devices

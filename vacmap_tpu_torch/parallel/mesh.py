@@ -23,7 +23,7 @@ import atexit
 import dataclasses
 import datetime
 import threading
-from typing import List, Optional, Sequence
+from typing import ClassVar, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -166,35 +166,37 @@ def cached_chain_step(cache: dict, devices, variant: str, kmersize: int,
 
 @dataclasses.dataclass
 class ShardedMappingStep:
-    """Every device kernel of the read path, split over a device list in
-    one step: the global chain DP and the local (fine) re-chain DP
-    (csrc/chain_dp.cu), then a full-width fill with its row-run traceback
-    of the step's target/query pairs (``ops/affine_fill.fill_rowruns``,
-    csrc/fill_full.cu).  The reference's step runs
-    ``affine_jax._affine_batch`` there, a plain XLA fill that nothing in
-    production calls and that this package does not port; the fill here is
-    the production one.  Host glue (backtrack, harvest, SAM) runs between
-    production calls; here the kernels run back to back, so a dry run
-    shows that the whole device step builds and runs on n devices.
+    """Every device kernel of the reference's mapping step, split over a
+    device list in one step: the global chain DP and the local (fine)
+    re-chain DP (csrc/chain_dp.cu), then the banded global affine DP of
+    the step's target/query pairs at W = fill_band with the reference's
+    default scores (``ops/affine_batch.affine_batch``, csrc/affine_band.cu),
+    as ``vacmap_tpu/parallel/mesh.py::ShardedMappingStep`` runs them.  Host
+    glue (backtrack, harvest, SAM) runs between production calls; here the
+    kernels run back to back, so a dry run shows that the whole device
+    step builds and runs on n devices.
 
     ``__call__(anchors, n_valid, skip_i, maxdiff_i, l_anchors, l_valid,
     l_skip, l_maxdiff, targets, queries, t_len, q_len)``, numpy arrays
     with the batch first (a multiple of the device count, as the
-    reference's sharded step requires; targets and queries (B, N) uint8
-    planes, N a multiple of 32 up to 1024), returns ``(S_g, P_g, S_l, P_l,
-    planes, n_mapped)``: numpy arrays and the count of reads whose best
-    global chain scores over 60."""
+    reference's sharded step requires; targets (B, T) and queries (B, Q)
+    uint8 planes), returns ``(S_g, P_g, S_l, P_l, best, n_mapped)``: numpy
+    arrays, ``best`` each pair's best cell (float32, (B,)), and the count
+    of reads whose best global chain scores over 60."""
 
     devices: Sequence[torch.device]
+    # the reference step's fill_len and fill_band, fixed here: the pair
+    # length a dry run builds and the band the fill runs at
+    fill_len: ClassVar[int] = 128
+    fill_band: ClassVar[int] = 32
 
     def __post_init__(self):
         self._parts = _Parts(self.devices)
         self.devices = self._parts.devices
 
-    @staticmethod
-    def _launch(anchors, n_valid, skip_i, maxdiff_i, l_anchors, l_valid,
-                l_skip, l_maxdiff, targets, queries, lens):
-        from ..ops.affine_fill import fill_rowruns
+    def _launch(self, anchors, n_valid, skip_i, maxdiff_i, l_anchors, l_valid,
+                l_skip, l_maxdiff, targets, queries, t_len, q_len):
+        from ..ops.affine_batch import affine_batch
 
         S_g, P_g = chain_scores_batch(
             anchors, n_valid, skip_i, maxdiff_i, kmersize=15, maxdiff=50,
@@ -202,8 +204,9 @@ class ShardedMappingStep:
         S_l, P_l = chain_scores_batch(
             l_anchors, l_valid, l_skip, l_maxdiff, kmersize=9, maxdiff=30,
             maxgap=99, skipcost=30.0, variant="fine")
-        planes = fill_rowruns(targets, queries, lens)
-        return S_g, P_g, S_l, P_l, planes, S_g.max(dim=1).values
+        best = affine_batch(targets, queries, t_len, q_len,
+                            W=self.fill_band, zdrop=-1, glob=True)[1]
+        return S_g, P_g, S_l, P_l, best, S_g.max(dim=1).values
 
     def __call__(self, anchors, n_valid, skip_i, maxdiff_i, l_anchors,
                  l_valid, l_skip, l_maxdiff, targets, queries, t_len, q_len):
@@ -211,12 +214,13 @@ class ShardedMappingStep:
         if B % len(self.devices):
             raise ValueError(f"a batch of {B} does not split over "
                              f"{len(self.devices)} devices")
-        lens = np.stack([t_len, q_len], axis=1).astype(np.int32)
-        *outs, best = self._parts.run(
+        *outs, chain_best = self._parts.run(
             self._launch,
             (anchors, n_valid, skip_i, maxdiff_i, l_anchors, l_valid, l_skip,
-             l_maxdiff, targets, queries, lens))
-        return (*outs, int((best > 60.0).sum()))
+             l_maxdiff, np.asarray(targets, np.uint8),
+             np.asarray(queries, np.uint8), np.asarray(t_len, np.int32),
+             np.asarray(q_len, np.int32)))
+        return (*outs, int((chain_best > 60.0).sum()))
 
 
 _GROUP_UP = False
