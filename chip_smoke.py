@@ -53,7 +53,9 @@ the final line):
      128 W = 32, and in the extension mode (the edge extension's scores,
      z-drop 50) at B = 64 T = 8192 and 32,768 W = 512, on genome pairs
      with ragged lengths, |q - t| >= W and queries that turn unrelated
-     (the pair drops); then ops.affine_batch.BatchAligner on the card in
+     (the pair drops), and on band_edge_batches at each band width (the
+     global, extension and zero-gap modes); then
+     ops.affine_batch.BatchAligner on the card in
      both modes on 226 and 184 fill_pairs of up to 4,600 and 8,192 bases
      (global pairs the band or the buckets cannot hold go to the host
      align2p, as in the reference) against the same groups through the
@@ -430,6 +432,60 @@ def band_pairs(rng, gcodes, B, T, W, ext):
                                                     dtype=np.uint8)])
         pairs.append((t, q))
     return pairs
+
+
+# the banded affine DP's edge batches: a target of at most EDGE_T bases
+EDGE_T = 160
+EDGE_ZDROP = 20
+# zero gap costs: H never falls along a row or a column, so equal maxima
+# stand at several lanes of a row and in several rows
+ZERO_GAPS = dict(o1=0, e1=0, o2=0, e2=0)
+
+
+def band_edge_batches(W, seed=17):
+    """The banded affine DP's edge cases at band width W, as {mode: (x,
+    kw, roles)}: x = (targets (B, EDGE_T), queries (B, EDGE_T + W + 32),
+    t_len, q_len) numpy arrays padded with code 4, kw the call's
+    keywords, roles {case: pair index}.  Cases: t_len = q_len = 1 (match
+    and mismatch); a query W + 10 longer than its target (|q - t| >= W:
+    the band misses the end cell), and where W < EDGE_T also one that
+    much shorter; a 5 x 7 pair (dlo clamped at -t_len); an all-code-4
+    target; a mutated copy, an identical pair (never drops) and an
+    unrelated one (drops at its first rows).  Modes: "global" (default
+    scores), "extension" (EXT_KW's scores, z-drop EDGE_ZDROP) and "ties"
+    (global, ZERO_GAPS)."""
+    rng = np.random.default_rng(seed + W)
+    T = EDGE_T
+    Q = T + W + 32
+    rand = lambda n: rng.integers(0, 4, n, dtype=np.uint8)  # noqa: E731
+    t_copy = rand(150)
+    t_far = rand(100)
+    t_same = rand(T)
+    pairs = {
+        "one": (np.array([0], np.uint8), np.array([0], np.uint8)),
+        "one_mismatch": (np.array([1], np.uint8), np.array([2], np.uint8)),
+        "far_long_query": (t_far, np.concatenate(
+            [mutate_codes(rng, t_far, ERR), rand(W + 10)])[: 100 + W + 10]),
+        "clamp": (rand(5), rand(7)),
+        "all_n_target": (np.full(90, 4, np.uint8), rand(90)),
+        "copy": (t_copy, mutate_codes(rng, t_copy, 0.08)[:T]),
+        "same": (t_same, t_same.copy()),
+        "unrelated": (rand(T), rand(T)),
+    }
+    if W + 5 < T:
+        t = rand(T)
+        pairs["far_short_query"] = (t, t[: T - W - 5].copy())
+    roles = {name: b for b, name in enumerate(pairs)}
+    B = len(pairs)
+    x = (np.full((B, T), 4, np.uint8), np.full((B, Q), 4, np.uint8),
+         np.zeros(B, np.int32), np.zeros(B, np.int32))
+    for b, (t, q) in enumerate(pairs.values()):
+        x[0][b, : len(t)], x[1][b, : len(q)] = t, q
+        x[2][b], x[3][b] = len(t), len(q)
+    return {"global": (x, dict(W=W, glob=True, zdrop=-1), roles),
+            "extension": (x, dict(EXT_KW, W=W, glob=False, zdrop=EDGE_ZDROP),
+                          roles),
+            "ties": (x, dict(ZERO_GAPS, W=W, glob=True, zdrop=-1), roles)}
 
 
 def cigar_score(cigar, t, q):
@@ -1720,6 +1776,27 @@ def main() -> int:
                  f"its plain version in {differ}")
         return 0, ms, wrap_ms, plain_ms, b_ms, b_by
 
+    def affine_edge_phase(W):
+        """csrc/affine_band.cu against affine_batch_ref on the card on
+        band_edge_batches(W) (the CPU twin's edge cases): all six outputs
+        equal in each mode, the plane byte for byte."""
+        for mode, (xn, kw, roles) in band_edge_batches(W).items():
+            x = [torch.from_numpy(a).to(dev) for a in xn]
+            got = ab.affine_batch(*x, **kw)
+            torch.cuda.synchronize()
+            want = ab.affine_batch_ref(*x, **kw)
+            names = ("tb", "best", "best_i", "best_j", "dead", "dlo")
+            differ = [n for n, g, w in zip(names, got, want)
+                      if g.dtype != w.dtype or g.shape != w.shape
+                      or not torch.equal(g, w)]
+            say(f"kernel affine_band edge W={W} {mode}: {len(roles)} pairs "
+                f"({', '.join(roles)}): "
+                f"{'all six outputs equal' if not differ else f'DIFFER in {differ}'}"
+                f" [{card}]")
+            if differ:
+                fail(f"affine_band edge W={W} {mode} differs from its plain "
+                     f"version in {differ}")
+
     class PlainBatchAligner(ab.BatchAligner):
         # the same groups through the plain version on the card's tensors
         _affine = staticmethod(ab.affine_batch_ref)
@@ -1780,6 +1857,8 @@ def main() -> int:
                affine_phase(64, 32768, 512, False, 3, rng_band),
                affine_phase(16, 128, 32, True, 10, rng_band)]
         summary["affine_band"] = summarize(res)
+        for W in ab.BAND_WIDTHS:
+            affine_edge_phase(W)
         glob_pairs = (fill_pairs(rng_band, gcodes, 160, 30, 512, big_indel=0.1)
                       + fill_pairs(rng_band, gcodes, 48, 513, 2048,
                                    big_indel=0.1)

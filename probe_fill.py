@@ -144,7 +144,8 @@ def build_all(builds, units=("fill_full.cu", "fill_scan.cu"),
             continue
         for f in units:
             for line in logs[(label, f)][0].splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "Compiling entry function" in line):
                     cs.say(f"ptxas {label}/{f}: {line.strip()}")
         d = out / label
         so = d / "libprobe.so"

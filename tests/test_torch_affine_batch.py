@@ -1,6 +1,7 @@
 """vacmap_tpu_torch.ops.affine_batch (plain PyTorch version, CPU) against
 the JAX package's ``ops/affine_jax.py``: the same seeded numpy inputs
-through ``_affine_batch`` and ``affine_batch_ref``, the two BatchAligners,
+through ``_affine_batch``, ``affine_batch_ref`` and the kernel's order
+(``affine_batch_wavefront_ref``), the two BatchAligners,
 and the two ShardedMappingSteps; then the port's AggregatingAligner.
 
 Tolerances: best, best_i, best_j, dead and dlo exactly equal; traceback
@@ -126,6 +127,18 @@ def test_plain_version_matches_the_jax_function(case):
         assert want[4].any() and not want[4].all(), "a pair should drop"
     if "far" in name:
         assert (np.abs(ql - tl) >= W).any()
+
+
+def test_wavefront_twin_matches_the_jax_function(case):
+    """csrc/affine_band.cu's order on the CPU (affine_batch_wavefront_ref)
+    against the JAX function: all six outputs equal, whole planes."""
+    _, x, kw, want = case
+    got = [a.numpy() for a in ab.affine_batch_wavefront_ref(
+        *map(torch.from_numpy, x), **kw)]
+    for what, g, w in zip(("tb", "best", "best_i", "best_j", "dead", "dlo"),
+                          got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        np.testing.assert_array_equal(g, w, err_msg=what)
 
 
 def _pairs(seed, n, lo, hi, far=0):

@@ -875,7 +875,10 @@ def _band_batch(rng, B, T, W, tail):
 @pytest.mark.parametrize("glob", [True, False])
 def test_affine_band_kernel_matches_plain(dev, W, glob):
     """csrc/affine_band.cu against affine_batch_ref on the card: every
-    output equal, the plane byte for byte, in one launch."""
+    output equal, the plane byte for byte, in one launch; then on the CPU
+    twin's edge batches at this W (chip_smoke.band_edge_batches: global
+    and zero-gap ties, or the extension)."""
+    from chip_smoke import band_edge_batches
     from vacmap_tpu_torch.ops.affine_batch import affine_batch, affine_batch_ref
 
     T = 4 * W if glob else 8 * W
@@ -892,6 +895,16 @@ def test_affine_band_kernel_matches_plain(dev, W, glob):
         assert torch.equal(g.cpu(), w.cpu())
     if not glob:
         assert bool(want[4].any()) and not bool(want[4].all())
+    edge = band_edge_batches(W)
+    for mode in (("global", "ties") if glob else ("extension",)):
+        xn, kw, _ = edge[mode]
+        x = [torch.from_numpy(a).to(dev) for a in xn]
+        got = affine_batch(*x, **kw)
+        torch.cuda.synchronize()
+        want = affine_batch_ref(*x, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, mode
+            assert torch.equal(g.cpu(), w.cpu()), mode
 
 
 def test_affine_band_kernel_takes_no_plain_route_and_checks_inputs(

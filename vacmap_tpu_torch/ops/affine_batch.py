@@ -11,11 +11,15 @@ d = j - i in [dlo, dlo + W)), the row formulation of the host oracle
 * z-drop extension (``glob=False``, ``zdrop >= 0``): the best cell, its
   row and column and whether the pair dropped, no plane.
 
-On a CUDA tensor it launches csrc/affine_band.cu (one warp a pair), which
-replaces the reference's ``lax.scan`` over rows (affine_jax.py:162); on a
-CPU tensor it runs ``affine_batch_ref``, a row loop that repeats the
-reference's step (affine_jax.py:85-156) op for op in float32 with the
-same NEG = -1e9, so that the planes of masked cells round as there too.
+On a CUDA tensor it launches csrc/affine_band.cu (one warp a pair, an
+anti-diagonal wavefront over the band), which replaces the reference's
+``lax.scan`` over rows (affine_jax.py:162); on a CPU tensor it runs
+``affine_batch_ref``, a row loop that repeats the reference's step
+(affine_jax.py:85-156) op for op in float32 with the same NEG = -1e9, so
+that the planes of masked cells round as there too.
+``affine_batch_wavefront_ref`` runs the kernel's order (cell (i, l) at
+step 2i + l, with the carries it hands from lane to lane) on the same
+float32 operations, for the CPU tests.
 
 ``BatchAligner`` is the host-facing aligner over it: pairs in length
 buckets, bands of 128 / 256 / 512, the host traceback, and the host
@@ -162,6 +166,139 @@ def affine_batch_ref(targets: torch.Tensor, queries: torch.Tensor,
     return tb, best, best_i, best_j, dead, dlo
 
 
+def affine_batch_wavefront_ref(targets: torch.Tensor, queries: torch.Tensor,
+                               t_len: torch.Tensor, q_len: torch.Tensor, *,
+                               W: int, match=2, mismatch=-4, o1=4, e1=2, o2=24,
+                               e2=1, zdrop=-1, glob=True):
+    """The kernel's order in plain PyTorch (csrc/affine_band.cu): cell
+    (i, l) at step s = 2i + l, so that a step's cells are independent.
+    Each lane keeps H, E1 and E2 of the last row it made (its right-hand
+    neighbour reads them as the cell above, itself as the diagonal) and
+    the carries its left-hand neighbour reads at the next step: the
+    cummaxes run1 and run2 (``run[l] = max(run[l-1], base[l])``), F1, F2
+    and the row's best so far (value, lane; a strict > keeps the lowest
+    lane).  Lane W - 1 completes row i's best at step 2i + W - 1, where
+    best, best_i, best_j and dead change.  Rows run to T in the global
+    mode and to min(T, t_len) in the extension mode.  The same float32
+    operations as ``affine_batch_ref``, so every output, the plane
+    included, is equal bit for bit."""
+    dev = targets.device
+    B, T = targets.shape
+    Q = queries.shape[1]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    f_o1, f_e1, f_o2, f_e2 = f32(o1), f32(e1), f32(o2), f32(e2)
+    f_mat, f_mis, f_neg = f32(match), f32(mismatch), f32(NEG)
+    t_len = t_len.to(torch.int32)
+    q_len = q_len.to(torch.int32)
+    lanes = torch.arange(W, dtype=torch.int32, device=dev)
+    lf = lanes.to(torch.float32)
+    le1, le2 = lf * f_e1, lf * f_e2
+    dlo = band_start(t_len, q_len, W)
+    # column 0's value, a constant of each lane: it lies on row -dlo - l
+    i0 = (-dlo[:, None] - lanes[None, :]).to(torch.float32)
+    col0_h = -torch.minimum(f_o1 + f_e1 * i0, f_o2 + f_e2 * i0)
+    j0 = lanes[None, :] + dlo[:, None]
+    inb0 = (j0 >= 0) & (j0 <= q_len[:, None])
+    gap0 = torch.minimum(f_o1 + f_e1 * j0, f_o2 + f_e2 * j0)
+    H = torch.where(inb0 & (j0 > 0), -gap0,
+                    torch.where(j0 == 0, f32(0.0), f_neg))
+    full = lambda v: torch.full((B, W), v, dtype=torch.float32, device=dev)  # noqa: E731
+    E1, E2, R1, R2, F1, F2, BV = (full(NEG) for _ in range(7))
+    BL = torch.zeros((B, W), dtype=torch.int32, device=dev)
+    best = torch.full((B,), NEG, dtype=torch.float32, device=dev)
+    best_i = torch.zeros(B, dtype=torch.int32, device=dev)
+    best_j = torch.zeros(B, dtype=torch.int32, device=dev)
+    dead = torch.zeros(B, dtype=torch.bool, device=dev)
+    tb = (torch.zeros((B, T, W), dtype=torch.uint8, device=dev) if glob
+          else torch.zeros(T, dtype=torch.uint8, device=dev))
+    last = (torch.full((B,), T, dtype=torch.int32, device=dev) if glob
+            else t_len.clamp(0, T))
+    u8 = lambda v: torch.tensor(v, dtype=torch.uint8, device=dev)  # noqa: E731
+    zero = u8(0)
+    ql, tl = q_len[:, None], t_len[:, None]
+    # the row's left and right edges: lane -1 (the carries' start; bv
+    # -inf so that lane 0 always takes its own value) and lane W (NEG)
+    neg_col = torch.full((B, 1), NEG, dtype=torch.float32, device=dev)
+    ninf_col = torch.full((B, 1), -float("inf"), dtype=torch.float32,
+                          device=dev)
+    zero_col = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    n_last = int(last.max()) if B else 0
+    for s in range(2, 2 * n_last + W if n_last >= 1 else 0):
+        L = lanes[s % 2 :: 2]
+        i = (s - L) // 2  # each lane's row at this step
+        act = (i[None, :] >= 1) & (i[None, :] <= last[:, None])
+        if not bool(act.any()):
+            continue
+        j = L[None, :] + i[None, :] + dlo[:, None]
+        ti = targets[:, (i - 1).clamp(0, T - 1).long()]
+        qi = torch.gather(queries, 1, (j - 1).clamp(0, Q - 1).long())
+        sub = torch.where(qi == ti, f_mat, f_mis)
+        Hd = H[:, L]
+        up = (L + 1).long()  # the cell above: lane l + 1's last row
+        Hu = torch.cat([H, neg_col], 1)[:, up]
+        E1u = torch.cat([E1, neg_col], 1)[:, up]
+        E2u = torch.cat([E2, neg_col], 1)[:, up]
+        left = L.long()  # lane l - 1's carries, at index l after the edge
+        r1p = torch.cat([neg_col, R1], 1)[:, left]
+        r2p = torch.cat([neg_col, R2], 1)[:, left]
+        f1p = torch.cat([neg_col, F1], 1)[:, left]
+        f2p = torch.cat([neg_col, F2], 1)[:, left]
+        bvp = torch.cat([ninf_col, BV], 1)[:, left]
+        blp = torch.cat([zero_col, BL], 1)[:, left]
+        lane0 = (L == 0)[None, :]
+        l_e1, l_e2 = le1[L], le2[L]
+
+        diag = Hd + sub
+        e1x, e2x = E1u - f_e1, E2u - f_e2
+        e1n = torch.maximum(e1x, Hu - f_o1 - f_e1)
+        e2n = torch.maximum(e2x, Hu - f_o2 - f_e2)
+        h0 = torch.maximum(diag, torch.maximum(e1n, e2n))
+        col0 = j == 0
+        h0 = torch.where(col0, col0_h[:, L], h0)
+        inb = (j >= 1) & (j <= ql) & (i[None, :] <= tl)
+        okc = inb | col0
+        m = torch.where(okc, h0, f_neg)
+        b1, b2 = m + l_e1, m + l_e2
+        r1 = torch.where(lane0, b1, torch.maximum(r1p, b1))
+        r2 = torch.where(lane0, b2, torch.maximum(r2p, b2))
+        f1 = r1p - l_e1 - f_o1
+        f2 = r2p - l_e2 - f_o2
+        h = torch.maximum(h0, torch.maximum(f1, f2))
+        h = torch.where(col0, col0_h[:, L], h)
+        h = torch.where(okc, h, f_neg)
+        hm = torch.where(inb, h, f_neg)
+        take = hm > bvp
+        bv = torch.where(take, hm, bvp)
+        bl = torch.where(take, L[None, :].expand_as(blp), blp)
+        for state, new in ((H, h), (E1, e1n), (E2, e2n), (R1, r1), (R2, r2),
+                           (F1, f1), (F2, f2), (BV, bv), (BL, bl)):
+            state[:, L] = torch.where(act, new, state[:, L])
+        if glob:
+            op = torch.where(h == f2, u8(_INS2),
+                             torch.where(h == f1, u8(_INS1), u8(_DIAG)))
+            op = torch.where(h == e2n, u8(_DEL2),
+                             torch.where(h == e1n, u8(_DEL1), op))
+            op = torch.where(h == diag, u8(_DIAG), op)
+            op = op | torch.where(e1n == e1x, u8(_E1X), zero)
+            op = op | torch.where(e2n == e2x, u8(_E2X), zero)
+            op = op | torch.where(f1 == f1p - f_e1, u8(_F1X), zero)
+            op = op | torch.where(f2 == f2p - f_e2, u8(_F2X), zero)
+            rows = (i - 1).clamp(0, T - 1).long()
+            tb[:, rows, L] = torch.where(act, op, tb[:, rows, L])
+        ic = (s - (W - 1)) // 2  # the row lane W - 1 completes at step s
+        if s % 2 and ic >= 1:
+            done = ic <= last
+            in_t = done & (ic <= t_len)
+            row_best, row_lane = BV[:, W - 1], BL[:, W - 1]
+            improved = (row_best > best) & ~dead & in_t
+            best = torch.where(improved, row_best, best)
+            best_i = torch.where(improved, ic, best_i)
+            best_j = torch.where(improved, row_lane + ic + dlo, best_j)
+            if not glob and zdrop >= 0:
+                dead = dead | ((best - row_best > zdrop) & in_t)
+    return tb, best, best_i, best_j, dead, dlo
+
+
 def affine_batch(targets: torch.Tensor, queries: torch.Tensor,
                  t_len: torch.Tensor, q_len: torch.Tensor, *, W: int,
                  match=2, mismatch=-4, o1=4, e1=2, o2=24, e2=1, zdrop=-1,
@@ -197,20 +334,26 @@ def affine_batch(targets: torch.Tensor, queries: torch.Tensor,
     check_tensor("t_len", t_len, torch.int32, (B,), dev)
     check_tensor("q_len", q_len, torch.int32, (B,), dev)
     lib = library()
-    dlo = band_start(t_len, q_len, W)
-    tb = (torch.empty((B, T, W), dtype=torch.uint8, device=dev) if glob
-          else torch.zeros(T, dtype=torch.uint8, device=dev))
-    best = torch.empty(B, dtype=torch.float32, device=dev)
-    best_i = torch.empty(B, dtype=torch.int32, device=dev)
-    best_j = torch.empty(B, dtype=torch.int32, device=dev)
-    dead = torch.empty(B, dtype=torch.bool, device=dev)
+    # one buffer for every output: the plane (the extension mode's (T,)
+    # zeros, which the kernel clears), then best, best_i, best_j, dlo and
+    # dead; the kernel computes dlo
+    plane = B * T * W if glob else T
+    o = (plane + 15) & ~15
+    alloc = torch.zeros if B == 0 else torch.empty
+    buf = alloc(o + 17 * B, dtype=torch.uint8, device=dev)
+    tb = buf[:plane].view(B, T, W) if glob else buf[:T]
+    best, best_i, best_j, dlo = (
+        buf[o + 4 * B * k : o + 4 * B * (k + 1)].view(dtype)
+        for k, dtype in enumerate((torch.float32, torch.int32, torch.int32,
+                                   torch.int32)))
+    dead = buf[o + 16 * B :].view(torch.bool)
     if B == 0:
         return tb, best, best_i, best_j, dead, dlo
     with launch_stream(dev) as stream:
         rc = lib.affine_band_launch(
             targets.data_ptr(), queries.data_ptr(), t_len.data_ptr(),
-            q_len.data_ptr(), dlo.data_ptr(), tb.data_ptr() if glob else None,
-            best.data_ptr(), best_i.data_ptr(), best_j.data_ptr(),
+            q_len.data_ptr(), buf.data_ptr(), best.data_ptr(),
+            best_i.data_ptr(), best_j.data_ptr(), dlo.data_ptr(),
             dead.data_ptr(), B, T, Q, W, int(glob), match, mismatch, o1, e1,
             o2, e2, zdrop, stream)
     if rc != 0:
