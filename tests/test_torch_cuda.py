@@ -169,6 +169,60 @@ def test_chain_kernel_small_batch_large_n_every_cluster_size(dev, variant, B):
     _chain_on_card_against_plain(dev, alist, variant, (0, 1, 2, 4, 8))
 
 
+def test_chain_kernel_launches_from_concurrent_threads(dev):
+    """Four threads launch at once, each alternating a batch of short reads
+    and one of reads near 8192 anchors (shared-memory limits of the kernel
+    far apart), as the local chain DP's concurrent dispatches do: every
+    launch succeeds and gives the bits one thread gives."""
+    import threading
+
+    from vacmap_tpu_torch.ops.chain import (
+        chain_scores_batch, prepare_batch, to_device,
+    )
+
+    rng = np.random.default_rng(77)
+    small = [chainy_anchors(rng, read_len=3000) for _ in range(16)]
+    large = []
+    for _ in range(3):
+        a = chainy_anchors(rng, read_len=36 * 8000, noise=800)
+        large.append(by_barrier(a[np.sort(rng.permutation(len(a))[:8000])],
+                                "fine"))
+    kw = dict(CHAIN_KW, variant="fine")
+    xs = [to_device(dev, *prepare_batch(a, "fine", 40.0, 50))
+          for a in (small, large)]
+    want = []
+    for x in xs:
+        S, P = chain_scores_batch(*x, **kw)
+        torch.cuda.synchronize()
+        want.append((S.cpu().numpy(), P.cpu().numpy()))
+    start = threading.Barrier(4)
+    errors, got = [], [[] for _ in range(4)]
+
+    def run(t):
+        start.wait()
+        try:
+            for k in range(200):
+                got[t].append(chain_scores_batch(*xs[(k + t) % 2], **kw))
+        except Exception as err:  # noqa: BLE001 - reported below
+            errors.append(repr(err))
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    assert not errors, errors[:3]
+    for t in range(4):
+        assert len(got[t]) == 200
+        for k in (0, 1, 198, 199):
+            S, P = got[t][k]
+            S0, P0 = want[(k + t) % 2]
+            assert np.array_equal(S.cpu().numpy().view(np.int32),
+                                  S0.view(np.int32))
+            assert np.array_equal(P.cpu().numpy(), P0)
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_chain_kernel_ties_ragged_and_unsorted_reads(dev, variant):
     """Groups of equal barrier across tile edges, n_valid around and below
@@ -958,3 +1012,58 @@ def test_batch_aligner_on_card_matches_plain_groups(dev, glob):
             assert cigar_score(r.cigar, t, q) == align2p(
                 t, q, bw=-1, zdrop=-1).score
 
+
+
+def test_trace_clock_is_the_profiler_clock(dev):
+    """The port's trace stamps spans on the clock torch.profiler stamps the
+    card's events on: a span that sleeps 20 ms, then launches one chain
+    DP and synchronises, holds the kernel's device interval from 20 ms
+    after its start to its end, within 0.5 ms.  Prints the skew, and the
+    offset of a reading taken just after the profiler's ``__enter__``
+    (as the benchmark's traced window takes it) from ``trace_start_ns``."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+    from vacmap_tpu_torch import trace
+    from vacmap_tpu_torch.ops.chain import (
+        chain_scores_batch, prepare_batch, to_device,
+    )
+
+    rng = np.random.default_rng(90)
+    x = to_device(dev, *prepare_batch(
+        [chainy_anchors(rng) for _ in range(8)], "global", 40.0, 50))
+    kw = dict(CHAIN_KW, variant="global")
+    chain_scores_batch(*x, **kw)  # builds the library
+    torch.cuda.synchronize()
+    trace.reset()
+    trace.enable()
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.__enter__()
+        entered = trace.now_ns()
+        try:
+            with trace.span("clock"):
+                time.sleep(0.02)
+                launched = trace.now_ns()
+                chain_scores_batch(*x, **kw)
+                torch.cuda.synchronize()
+        finally:
+            prof.__exit__(None, None, None)
+        (sp,) = [e for e in trace.events() if e.name == "clock"]
+    finally:
+        trace.enable(False)
+        trace.reset()
+    res = prof.profiler.kineto_results
+    cuda = torch.autograd.DeviceType.CUDA
+    (k,) = [(ev.start_ns(), ev.start_ns() + ev.duration_ns())
+            for ev in res.events()
+            if ev.device_type() == cuda and "chain_dp" in ev.name()]
+    tol = 500_000
+    print(f"trace clock: kernel starts {(k[0] - sp.t0) / 1e6:.3f} ms after "
+          f"the span, {(k[0] - launched) / 1e6:.3f} ms after the launch "
+          f"call, ends {(sp.t1 - k[1]) / 1e6:.3f} ms before the span; "
+          f"__enter__ reading - trace_start_ns "
+          f"{(entered - res.trace_start_ns()) / 1e6:.3f} ms")
+    assert k[0] >= sp.t0 + 20_000_000 - tol
+    assert k[1] <= sp.t1 + tol
+    assert k[0] >= launched - tol

@@ -49,6 +49,8 @@
 
 #include <cooperative_groups.h>
 
+#include <mutex>
+
 #include "chain_tile.cuh"
 
 namespace cg = cooperative_groups;
@@ -64,6 +66,13 @@ constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;  // the portable cluster size limit
 constexpr int kSMs = 132;       // H100 SXM; only steers the cluster size
+
+// The shared-memory limit is an attribute of the kernel, not of a launch:
+// a thread that lowers it between another thread's setting and that
+// thread's launch makes the launch fail (cudaErrorLaunchOutOfResources,
+// from the occupancy query).  Threads that chain at once (the local chain
+// DP's concurrent dispatches) take this lock from the setting to the launch.
+std::mutex g_launch_mutex;
 
 // dynamic shared memory: anchors, records, S, partial bests, tile rows
 __host__ __device__ constexpr size_t smem_bytes(int N) {
@@ -270,6 +279,7 @@ cudaError_t launch(const void* anchors, const void* n_valid,
                    float kcoef, int maxgap, float skipcost, int cluster,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(N);
+  std::lock_guard<std::mutex> hold(g_launch_mutex);
   cudaError_t err = cudaFuncSetAttribute(
       chain_dp_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

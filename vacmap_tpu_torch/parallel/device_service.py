@@ -21,6 +21,7 @@ from typing import List
 
 import torch
 
+from .. import trace
 from ..device import DeviceKernelError
 from ..ops.chain import MAX_N, chain_results, device_coords
 from .mesh import cached_chain_step
@@ -38,7 +39,14 @@ class _Aggregator:
     Callers block on an event.  A DeviceKernelError reaches every waiting
     caller (the card is at fault, so no group runs after it); another
     error reaches the callers of its own group.  Every waiter wakes, even
-    when the dispatcher is interrupted."""
+    when the dispatcher is interrupted.
+
+    Traced (``<what>_agg.*``): the dispatcher's wait for peers
+    (``gather``) and its groups, launched and read back (``run``); a
+    caller blocked on its event (``wait``); counters ``dispatches``,
+    ``jobs`` (units) and ``overlap``: dispatches whose groups start while
+    another dispatcher's still run (``_dispatching`` is cleared before
+    the groups run)."""
 
     def __init__(self, run_group, max_wait_ms: float, max_jobs: int,
                  what: str):
@@ -50,6 +58,9 @@ class _Aggregator:
         self._queue: List[dict] = []
         self._queued = 0
         self._dispatching = False
+        self._running = 0  # dispatchers running groups (traced only)
+        self._trace = {k: f"{what}_agg.{k}" for k in (
+            "gather", "run", "wait", "dispatches", "jobs", "overlap")}
 
     def submit(self, key, payload, units: int = 1):
         """Queue one payload under ``key`` (``units`` of the cap) and block
@@ -63,44 +74,45 @@ class _Aggregator:
             if dispatcher:
                 self._dispatching = True
         if dispatcher:
-            self._dispatch()
-        req["event"].wait()
+            self._dispatch()  # sets every event of its batch, this one too
+        else:
+            with trace.span(self._trace["wait"]):
+                req["event"].wait()
         if req["error"] is not None:
             raise req["error"]
         return req["result"]
 
     def _dispatch(self):
+        names = self._trace
         # let peers pile on: a few ms of latency for one call instead of many
-        deadline = time.monotonic() + self._max_wait
-        while time.monotonic() < deadline:
-            with self._lock:
-                if self._queued >= self._max_jobs:
-                    break
-            time.sleep(0.001)
+        with trace.span(names["gather"]):
+            deadline = time.monotonic() + self._max_wait
+            while time.monotonic() < deadline:
+                with self._lock:
+                    if self._queued >= self._max_jobs:
+                        break
+                time.sleep(0.001)
+        traced = trace.enabled()
         with self._lock:
             batch = self._queue
+            units = self._queued
             self._queue = []
             self._queued = 0
             self._dispatching = False
+            if traced:
+                overlapped = self._running > 0
+                self._running += 1
+        if traced:
+            trace.count(names["dispatches"])
+            trace.count(names["jobs"], units)
+            trace.count(names["overlap"], overlapped)
         try:
-            groups = {}
-            for r in batch:
-                groups.setdefault(r["key"], []).append(r)
-            for key, reqs in groups.items():
-                try:
-                    results = self._run_group(key, [r["payload"] for r in reqs])
-                except DeviceKernelError as err:
-                    for r in batch:
-                        if r["result"] is None:
-                            r["error"] = err
-                    return
-                except Exception as err:  # noqa: BLE001 - to its callers
-                    for r in reqs:
-                        r["error"] = err
-                    continue
-                for r, res in zip(reqs, results):
-                    r["result"] = res
+            with trace.span(names["run"]):
+                self._run_groups(batch)
         finally:
+            if traced:
+                with self._lock:
+                    self._running -= 1
             # even on BaseException in the dispatcher every waiter wakes,
             # else the calling threads hang
             for r in batch:
@@ -108,6 +120,25 @@ class _Aggregator:
                     r["error"] = DeviceKernelError(
                         f"{self._what} dispatch interrupted")
                 r["event"].set()
+
+    def _run_groups(self, batch):
+        groups = {}
+        for r in batch:
+            groups.setdefault(r["key"], []).append(r)
+        for key, reqs in groups.items():
+            try:
+                results = self._run_group(key, [r["payload"] for r in reqs])
+            except DeviceKernelError as err:
+                for r in batch:
+                    if r["result"] is None:
+                        r["error"] = err
+                return
+            except Exception as err:  # noqa: BLE001 - to its callers
+                for r in reqs:
+                    r["error"] = err
+                continue
+            for r, res in zip(reqs, results):
+                r["result"] = res
 
 
 class AggregatingAligner:

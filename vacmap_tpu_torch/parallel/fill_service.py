@@ -68,7 +68,7 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import native
+from .. import native, trace
 from ..errors import DeviceKernelError
 from ..ops.affine_ref import AlignResult
 from ..pipeline.extend import HostBatchFillAligner, _host_global_batch
@@ -244,7 +244,13 @@ class _ServerCore:
     ``dispatch_jobs(jobs, T, Wd)`` -> handle, ``fetch(handle)``) serves
     requests whose fifth field is "edit"; ``edit_ready`` holds the
     buckets that take traffic and ``edit_ready_cb`` is called when it
-    is filled."""
+    is filled.
+
+    Traced: ``fill_svc.gather`` (the accumulation window),
+    ``fill_svc.dispatch`` (pad, launch and hand over to the downloader,
+    which blocks while ``DEPTH`` batches are in flight) and
+    ``fill_svc.download`` (wait for the copy, then route); counters
+    ``fill_svc.batches`` and ``fill_svc.jobs``."""
 
     def __init__(self, aligner, buckets=DEFAULT_BUCKETS,
                  max_wait_ms=MAX_WAIT_MS, force: bool = False,
@@ -377,10 +383,11 @@ class _ServerCore:
                 pass
 
     # -- dispatcher ----------------------------------------------------
-    def run_dispatch(self, req_get, resp_put):
+    def run_dispatch(self, req_get, resp_put, cause_of=None):
         """req_get(timeout) -> (client_id, req_id, lens, buf[, "edit"]) |
         None (stop); resp_put(client_id, msg).  Blocks until the stop
-        sentinel."""
+        sentinel.  ``cause_of(req_id)``: the id of the span that sent a
+        request, which a traced dispatch records as its cause."""
         pending = []
         while True:
             try:
@@ -392,24 +399,28 @@ class _ServerCore:
             pending.append(item)
             # accumulation window: let peers pile on (quiescence check:
             # dispatch early when no new request arrives for a while)
-            deadline = time.monotonic() + self.max_wait
-            last_new = time.monotonic()
-            njobs = len(pending[0][2])
             stop = False
-            while njobs < MAX_JOBS and time.monotonic() < deadline:
-                try:
-                    item = req_get(0.002)
-                except queue.Empty:
-                    if time.monotonic() - last_new >= QUIESCENT_S:
-                        break
-                    continue
-                if item is None:
-                    stop = True
-                    break
-                pending.append(item)
+            with trace.span("fill_svc.gather"):
+                deadline = time.monotonic() + self.max_wait
                 last_new = time.monotonic()
-                njobs += len(item[2])
-            self._dispatch_batch(pending, resp_put)
+                njobs = len(pending[0][2])
+                while njobs < MAX_JOBS and time.monotonic() < deadline:
+                    try:
+                        item = req_get(0.002)
+                    except queue.Empty:
+                        if time.monotonic() - last_new >= QUIESCENT_S:
+                            break
+                        continue
+                    if item is None:
+                        stop = True
+                        break
+                    pending.append(item)
+                    last_new = time.monotonic()
+                    njobs += len(item[2])
+            with trace.span("fill_svc.dispatch") as sp:
+                if sp is not None and cause_of is not None:
+                    sp.cause = cause_of(pending[0][1])
+                self._dispatch_batch(pending, resp_put)
             pending = []
             if stop:
                 break
@@ -514,6 +525,8 @@ class _ServerCore:
         with self._stats_lock:
             if self._stats is not None:
                 self._stats["disp_cpu"] += time.thread_time() - cpu0
+        trace.count("fill_svc.batches")
+        trace.count("fill_svc.jobs", len(job_req))
         self.inflight.put((pending, (job_req, job_ji), handles,
                            (overflow, len(edit_idx)), resp_put))
 
@@ -537,8 +550,9 @@ class _ServerCore:
             pending, (job_req, job_ji), handles, unrouted, resp_put = item
             if self.error is None:
                 try:
-                    self._download_item(pending, job_req, job_ji, handles,
-                                        unrouted, resp_put)
+                    with trace.span("fill_svc.download"):
+                        self._download_item(pending, job_req, job_ji,
+                                            handles, unrouted, resp_put)
                     continue
                 except Exception as err:  # noqa: BLE001  reported to clients
                     traceback.print_exc(limit=6, file=sys.stderr)
@@ -777,7 +791,12 @@ class AsyncFillAligner:
         finally:
             self.ready.set()
         self.core.run_dispatch(lambda tmo: self.req_q.get(timeout=tmo),
-                               self._resp_put)
+                               self._resp_put, self._cause_of)
+
+    def _cause_of(self, req_id) -> int:
+        with self._lock:
+            box = self._events.get(req_id)
+        return 0 if box is None else box["cause"]
 
     def _resp_put(self, client_id, resp):
         req_id, msg = resp
@@ -818,7 +837,8 @@ class AsyncFillAligner:
         _count(routes, SUBMITTED, len(pairs))
         if self.failed or not self.ready.is_set():
             return ("host", pairs, eqx)
-        box = {"event": threading.Event(), "msg": None, "n": len(pairs)}
+        box = {"event": threading.Event(), "msg": None, "n": len(pairs),
+               "cause": trace.current()}
         with self._lock:
             admit = self._pending_n < MAX_INFLIGHT_JOBS
             if admit:
@@ -837,8 +857,11 @@ class AsyncFillAligner:
         if box is None:
             return []
         if box == "host":
-            return _host_global_batch(pairs, eqx)
-        if not box["event"].wait(timeout=timeout):
+            with trace.span("rf.host_fill"):
+                return _host_global_batch(pairs, eqx)
+        with trace.span("fill_wait"):
+            answered = box["event"].wait(timeout=timeout)
+        if not answered:
             self._check()
             raise DeviceKernelError(
                 f"device fill service: no response in {timeout:.0f} s")
@@ -860,7 +883,8 @@ class AsyncFillAligner:
         if self.failed or not self.ready.is_set() or not self.core.edit_ready:
             _count(routes, NOT_LIVE, n)
             return [None] * n
-        box = {"event": threading.Event(), "msg": None, "n": n}
+        box = {"event": threading.Event(), "msg": None, "n": n,
+               "cause": trace.current()}
         with self._lock:
             admit = self._pending_n < MAX_INFLIGHT_JOBS
             if admit:
@@ -872,7 +896,9 @@ class AsyncFillAligner:
         if not admit:
             return [None] * n
         self.req_q.put((0, req_id, *pack_pairs(pairs), "edit"))
-        if not box["event"].wait(timeout=timeout):
+        with trace.span("edit_wait"):
+            answered = box["event"].wait(timeout=timeout)
+        if not answered:
             self._check()
             raise DeviceKernelError(
                 f"device fill service: no edit response in {timeout:.0f} s")

@@ -29,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import DeviceKernelError
 from ..ops.chain import TorchChainBackend, chain_results, device_coords
 from ..ops.chain_ref import ChainResult
@@ -91,32 +92,33 @@ class TorchBatchExecutor:
         bucket and chunk; None for a read the kernel cannot take (the
         host DP takes it), counted by cause.  The launches take each
         read's ``device_coords``; the results index its own rows."""
-        out: List[Optional[ChainResult]] = [None] * len(arrays)
-        groups = {}
-        for i, a in enumerate(arrays):
-            if len(a) > N_BUCKETS[-1]:
-                self.declined["size"] += 1
-                continue
-            d = device_coords(a, maxdiff)
-            if d is None:
-                self.declined["coords"] += 1
-                continue
-            bucket = next(b for b in N_BUCKETS if len(a) <= b)
-            groups.setdefault(bucket, []).append((i, d))
-        for bucket, jobs in groups.items():
-            for cs in range(0, len(jobs), self.max_device_batch):
-                chunk = jobs[cs : cs + self.max_device_batch]
-                # N padded to the bucket so shapes stay canonical
-                res = chain_results(
-                    self.device, [d for _, d in chunk], variant,
-                    kmersize, skipcost, maxdiff, maxgap, pad_N=bucket,
-                    step=cached_chain_step(
-                        self._sharded_steps, self.devices, variant, kmersize,
-                        skipcost, maxdiff, maxgap))
-                for (i, _), r in zip(chunk, res):
-                    out[i] = r
-                self.chained += len(chunk)
-        return out
+        with trace.span("ex.chain_dp"):
+            out: List[Optional[ChainResult]] = [None] * len(arrays)
+            groups = {}
+            for i, a in enumerate(arrays):
+                if len(a) > N_BUCKETS[-1]:
+                    self.declined["size"] += 1
+                    continue
+                d = device_coords(a, maxdiff)
+                if d is None:
+                    self.declined["coords"] += 1
+                    continue
+                bucket = next(b for b in N_BUCKETS if len(a) <= b)
+                groups.setdefault(bucket, []).append((i, d))
+            for bucket, jobs in groups.items():
+                for cs in range(0, len(jobs), self.max_device_batch):
+                    chunk = jobs[cs : cs + self.max_device_batch]
+                    # N padded to the bucket so shapes stay canonical
+                    res = chain_results(
+                        self.device, [d for _, d in chunk], variant,
+                        kmersize, skipcost, maxdiff, maxgap, pad_N=bucket,
+                        step=cached_chain_step(
+                            self._sharded_steps, self.devices, variant,
+                            kmersize, skipcost, maxdiff, maxgap))
+                    for (i, _), r in zip(chunk, res):
+                        out[i] = r
+                    self.chained += len(chunk)
+            return out
 
     # ------------------------------------------------------------------
     def _prepare(self, reads: Sequence[Tuple]):
@@ -124,55 +126,59 @@ class TorchBatchExecutor:
         m = self.mapper
         cfg = m.config
         prepped = []
-        for r in reads:
-            name, seq = r[0], r[1].upper()
-            anchors = m.index.seeds(seq, check_num=cfg.check_num)
-            if len(anchors) <= 2:
-                prepped.append(None)
-                continue
-            need_reverse, A = prepare_read_anchors(anchors, len(seq))
-            dense = len(A) / max(len(seq), 1) > 5 or len(A) > N_BUCKETS[-1]
-            prepped.append((name, seq, need_reverse, A, dense))
+        with trace.span("ex.prepare"):
+            for r in reads:
+                name, seq = r[0], r[1].upper()
+                with trace.span("seed"):
+                    anchors = m.index.seeds(seq, check_num=cfg.check_num)
+                if len(anchors) <= 2:
+                    prepped.append(None)
+                    continue
+                need_reverse, A = prepare_read_anchors(anchors, len(seq))
+                dense = (len(A) / max(len(seq), 1) > 5
+                         or len(A) > N_BUCKETS[-1])
+                prepped.append((name, seq, need_reverse, A, dense))
         return prepped
 
     def _run_prepared(self, reads, prepped, n_threads: int) -> List[List[str]]:
         """Stages 2+3: batched device chain, then threaded host finish."""
-        m = self.mapper
-        cfg = m.config
-        p = cfg.preset
-        kmersize = m.index.k
-        skip_g, maxdiff_g, maxgap_g = cfg.chain_params_global()
-        variant = "refund" if p.refund_penalty else (
-            "global" if p.cov_adapt else "global_nocov"
-        )
+        with trace.span("ex.batch"):
+            m = self.mapper
+            cfg = m.config
+            p = cfg.preset
+            kmersize = m.index.k
+            skip_g, maxdiff_g, maxgap_g = cfg.chain_params_global()
+            variant = "refund" if p.refund_penalty else (
+                "global" if p.cov_adapt else "global_nocov"
+            )
 
-        dev_idx = [
-            i for i, pr in enumerate(prepped) if pr is not None and not pr[4]
-        ]
-        # repeat-dense reads: too many anchors for the exact DP
-        self.declined["size"] += sum(
-            pr is not None and pr[4] for pr in prepped)
-        dev_results = self._device_chain(
-            [prepped[i][3] for i in dev_idx], variant, skip_g, maxdiff_g,
-            maxgap_g, kmersize,
-        )
-        res_by_read = {i: r for i, r in zip(dev_idx, dev_results)}
+            dev_idx = [i for i, pr in enumerate(prepped)
+                       if pr is not None and not pr[4]]
+            # repeat-dense reads: too many anchors for the exact DP
+            self.declined["size"] += sum(
+                pr is not None and pr[4] for pr in prepped)
+            dev_results = self._device_chain(
+                [prepped[i][3] for i in dev_idx], variant, skip_g, maxdiff_g,
+                maxgap_g, kmersize,
+            )
+            res_by_read = {i: r for i, r in zip(dev_idx, dev_results)}
 
-        def finish(i: int) -> List[str]:
-            pr = prepped[i]
-            if pr is None:
-                return []
-            name, seq, need_reverse, A, dense = pr
-            r = reads[i]
-            qual = r[2] if len(r) > 2 else None
-            comment = r[3] if len(r) > 3 else None
-            pre = None
-            if not dense and res_by_read.get(i) is not None:
-                pre = (need_reverse, A, res_by_read[i])
-            return self._finish_read(name, seq, qual, comment, pre)
+            def finish(i: int) -> List[str]:
+                pr = prepped[i]
+                if pr is None:
+                    return []
+                name, seq, need_reverse, A, dense = pr
+                r = reads[i]
+                qual = r[2] if len(r) > 2 else None
+                comment = r[3] if len(r) > 3 else None
+                pre = None
+                if not dense and res_by_read.get(i) is not None:
+                    pre = (need_reverse, A, res_by_read[i])
+                with trace.read(name), trace.span("ex.finish"):
+                    return self._finish_read(name, seq, qual, comment, pre)
 
-        with concurrent.futures.ThreadPoolExecutor(n_threads) as pool:
-            return list(pool.map(finish, range(len(reads))))
+            with concurrent.futures.ThreadPoolExecutor(n_threads) as pool:
+                return list(pool.map(finish, range(len(reads))))
 
     def map_batch(
         self, reads: Sequence[Tuple], n_threads: int = 4
@@ -195,7 +201,8 @@ class TorchBatchExecutor:
         with concurrent.futures.ThreadPoolExecutor(1) as seeder:
             fut = seeder.submit(take)
             while True:
-                batch, prepped = fut.result()
+                with trace.span("ex.seed_wait"):
+                    batch, prepped = fut.result()
                 if not batch:
                     break
                 fut = seeder.submit(take)
@@ -217,19 +224,20 @@ class TorchBatchExecutor:
         if not records:
             return []
         try:
-            return records_to_sam(
-                records, seq.upper(),
-                None if cfg.ignore_quals else qual,
-                m.ref_fetch_str,
-                md=cfg.md, cs=cfg.cs, short_cs=cfg.shortcs,
-                cigar2cg=cfg.cigar2cg,
-                markunbalancetra=cfg.resolved_markunbalancetra,
-                hardclip=cfg.hardclip, fakecigar=cfg.fakecigar,
-                rg_id=cfg.rg_id,
-                comment=comment if cfg.copycomments else None,
-                collapse_eqx=not cfg.resolved_eqx,
-                keep_order=cfg.preset.emit_keep_order,
-                mapq_quantize=cfg.preset.emit_mapq_quantize,
-            )
+            with trace.span("ex.sam"):
+                return records_to_sam(
+                    records, seq.upper(),
+                    None if cfg.ignore_quals else qual,
+                    m.ref_fetch_str,
+                    md=cfg.md, cs=cfg.cs, short_cs=cfg.shortcs,
+                    cigar2cg=cfg.cigar2cg,
+                    markunbalancetra=cfg.resolved_markunbalancetra,
+                    hardclip=cfg.hardclip, fakecigar=cfg.fakecigar,
+                    rg_id=cfg.rg_id,
+                    comment=comment if cfg.copycomments else None,
+                    collapse_eqx=not cfg.resolved_eqx,
+                    keep_order=cfg.preset.emit_keep_order,
+                    mapq_quantize=cfg.preset.emit_mapq_quantize,
+                )
         except Exception:
             return []

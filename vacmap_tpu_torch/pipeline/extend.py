@@ -1044,12 +1044,12 @@ def refine_chain(
             return seg_anchor_lists, records, filtered
 
         if defer and hasattr(gl_batch, "submit"):
-            trace.add("rf.fill_jobs", 0.0, len(fill_pairs))
+            trace.count("rf.fill_jobs", len(fill_pairs))
             handle = gl_batch.submit(fill_pairs, eqx)
             return PendingRefine(gl_batch, handle, _assemble)
 
         with trace.span("rf.fill"):
-            trace.add("rf.fill_jobs", 0.0, len(fill_pairs))
+            trace.count("rf.fill_jobs", len(fill_pairs))
             all_results = gl_batch(fill_pairs, eqx)
         return _assemble(all_results)
 
@@ -1087,8 +1087,7 @@ def refine_chain(
                         win_cache)
                 return _body(bounds, False, force_host_fill=True)
 
-            return PendingRefine(global_aligner, handle, _after_windows,
-                                 span="rf.diverg")
+            return PendingRefine(global_aligner, handle, _after_windows)
 
     return _body(None, defer_fill)
 
@@ -1151,26 +1150,21 @@ class PendingRefine:
     continuation (divergence decisions + rest of refine, or record
     assembly).
 
-    Trace accounting (round-5 fix): the blocking wait is its own
-    TOP-LEVEL span ``fill_wait`` (in-flight device time overlapped by
-    other reads — NOT refine compute), and the continuation runs under
-    the top-level span ``refine_cont`` so its nested rf.* child spans
-    have a parent in the stage-share denominator.  Round 4's capture
-    attributed continuation time to the bare rf.* names with no parent,
-    making rf.diverg read as 157% of the top-stage wall."""
+    Trace accounting: the aligner's ``wait`` spans its own blocking
+    (``fill_wait`` in the in-process service), and the continuation runs
+    under the top-level span ``refine_cont`` so its nested rf.* child
+    spans have a parent in the stage-share denominator."""
 
-    __slots__ = ("_aligner", "_handle", "_assemble", "_span")
+    __slots__ = ("_aligner", "_handle", "_assemble")
 
-    def __init__(self, aligner, handle, assemble, span: str = "rf.fill"):
+    def __init__(self, aligner, handle, assemble):
         self._aligner = aligner
         self._handle = handle
         self._assemble = assemble
-        self._span = span  # which batch kind is in flight (fill/diverg)
 
     def finish(self):
         from .. import trace
 
-        with trace.span("fill_wait"):
-            all_results = self._aligner.wait(self._handle)
+        all_results = self._aligner.wait(self._handle)
         with trace.span("refine_cont"):
             return self._assemble(all_results)
